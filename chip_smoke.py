@@ -1,0 +1,441 @@
+"""Drive the PyTorch/CUDA port's online query path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root; needs one CUDA card
+
+Phases, each of which raises (exit code 1, no result line) when it fails:
+
+1. card: the card's name and power limit, as nvidia-smi reports them;
+2. build: compile the hand-written kernels (``tensortruth_tpu_torch/csrc``)
+   with nvcc into ``tensortruth_tpu_torch/_build/``;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's shapes, with the tolerance stated below, and both timed
+   with CUDA events;
+4. main path: write a two-module index (this repository's own docs, chunked
+   and embedded by the port, plus a synthetic module that brings the
+   stacked corpus to 262,144 leaf rows), load it with the port's
+   ``load_engine_for_modules`` under the default BGE-M3 /
+   bge-reranker-v2-m3 architectures (random weights at full width, seeded),
+   answer 8 requests through ``RAGService.retrieve()`` and one through
+   ``query()`` with a stub LLM, and check the answers, the placement on the
+   card, the recall of the fused top-k against the exact one, and that
+   every kernel of the path was launched during the requests.
+
+The last three lines are the card's name and power limit, a JSON object
+describing each kernel, and the final ``{"ok": true, "device": ...}`` line.
+Nothing here imports JAX or the JAX package: the host code the port shares
+with it comes through ``tensortruth_tpu_torch.shared``. All scratch files go
+to a temporary directory inside the checkout that is removed at exit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+
+# Kernel B1 vs its plain version (both f32 accumulations of exact bf16
+# products, summed in different orders): scores agree to ~1e-6; an index may
+# differ only where the two scores at that rank are within this tolerance.
+TOPK_TOL = 1e-4
+# Kernel B3 vs its plain version: the kernel rounds the unnormalised softmax
+# weights to bf16 and the plain version the normalised ones, and both round
+# the output to bf16 (ulp 2^-8 below 1.0). Inputs are N(0, 1).
+ATTN_TOL = 2e-2
+# Fused vs exact top-20 over the main path's corpus: expected loss of the
+# bucketed candidates is about k^2 / (2 c_out) = 0.1 items of 20.
+MIN_RECALL = 0.9
+
+CORPUS_ROWS = 262_144  # 128 tiles of 2048
+# Leaf word counts of the synthetic module (bench.py:76): about 275 / 147 /
+# 250 tokens per rerank pair.
+CHUNK_WORDS = [242, 242, 242, 242, 242, 242, 118, 118, 118, 215]
+POOL_SIZE = 4096
+
+KERNELS = {
+    "fused_topk": {
+        "route": "cuda",
+        "source": "tensortruth_tpu_torch/csrc/fused_topk.cu",
+        "replaces": "tensortruth_tpu/ops/topk.py:74",
+    },
+    "blocked_attention": {
+        "route": "cuda",
+        "source": "tensortruth_tpu_torch/csrc/attention.cu",
+        "replaces": "tensortruth_tpu/ops/attention.py:33",
+    },
+}
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn`` (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(torch, kernel, plain) -> tuple[float, float]:
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kernel, kernel, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def unit_rows(torch, gen, n: int, d: int, dtype):
+    x = torch.randn((n, d), generator=gen, device=gen.device)
+    return (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)).to(dtype)
+
+
+# -- phase 3: kernels against their plain versions ---------------------------
+
+
+def check_fused_topk(torch) -> dict:
+    from tensortruth_tpu_torch.ops.topk import fused_topk, fused_topk_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, n, d, k = 32, CORPUS_ROWS, 1024, 100
+    q = unit_rows(torch, gen, b, d, torch.bfloat16)
+    e = unit_rows(torch, gen, n, d, torch.bfloat16)
+    vals, idx = fused_topk(q, e, k)
+    pvals, pidx = fused_topk_plain(q, e, k)
+    torch.cuda.synchronize()
+    diff = (vals - pvals).abs()
+    err = diff.max().item()
+    bad = int(((idx != pidx) & (diff > TOPK_TOL)).sum())
+    swapped = int((idx != pidx).sum())
+    check(err <= TOPK_TOL and bad == 0, f"fused_topk: max |err| {err}, {bad} index mismatches")
+
+    # Planted ties: integer-valued rows make every dot product exact in f32
+    # whatever the summation order, so tie order must match exactly.
+    tie_n = 16_384
+    tq = torch.randint(-2, 3, (b, d), generator=gen, device="cuda").to(torch.bfloat16)
+    te = torch.randint(-2, 3, (tie_n // 4, d), generator=gen, device="cuda").to(torch.bfloat16).repeat(4, 1)
+    tv, ti = fused_topk(tq, te, k, n_actual=tie_n - 100)
+    pv, pi = fused_topk_plain(tq, te, k, n_actual=tie_n - 100)
+    check(torch.equal(tv, pv) and torch.equal(ti, pi), "fused_topk: planted ties ordered differently")
+
+    ms, plain_ms = in_turns(torch, lambda: fused_topk(q, e, k), lambda: fused_topk_plain(q, e, k))
+    log(
+        f"kernel fused_topk B={b} N={n} D={d} k={k} bf16: max_abs_err={err:.3g} "
+        f"(tol {TOPK_TOL}), near-tie swaps={swapped}, planted ties exact; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+    )
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_attention(torch) -> dict:
+    from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    b, nh, dh = 16, 16, 64
+    worst, timing = 0.0, {}
+    for s in (512, 1024, 2048):
+        q, k, v = (
+            torch.randn((b, nh, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)
+        )
+        lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+        lengths[0], lengths[3] = s, 0  # one full row, one fully padded row
+        mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
+        out = blocked_attention(q, k, v, mask)
+        ref = attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        check(torch.isfinite(out.float()).all().item(), f"blocked_attention S={s}: non-finite output")
+        check(err <= ATTN_TOL, f"blocked_attention S={s}: max |err| {err} > {ATTN_TOL}")
+        uniform = v[3].float().mean(dim=1, keepdim=True).expand(nh, s, dh)
+        pad_err = (out[3].float() - uniform).abs().max().item()
+        check(pad_err <= ATTN_TOL, f"blocked_attention S={s}: padded row is not the mean of V ({pad_err})")
+        ms, plain_ms = in_turns(
+            torch, lambda: blocked_attention(q, k, v, mask), lambda: attention_reference(q, k, v, mask)
+        )
+        log(
+            f"kernel blocked_attention B={b} NH={nh} S={s} DH={dh} bf16: max_abs_err={err:.3g} "
+            f"(tol {ATTN_TOL}), padded-row err={pad_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        )
+        worst = max(worst, err)
+        timing[s] = (ms, plain_ms)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    ms, plain_ms = timing[1024]  # the bucket the main path's long request lands in
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+# -- phase 4: the main path --------------------------------------------------
+
+
+def docs_nodes(tokenizer) -> list:
+    from tensortruth_tpu_torch.shared import chunk_document
+
+    files = sorted((ROOT / "docs").glob("*.md")) + [ROOT / "README.md", ROOT / "SURVEY.md"]
+    nodes = []
+    for f in files:
+        meta = {"filename": f.name, "doc_type": "library"}
+        nodes += chunk_document(
+            f.read_text(encoding="utf-8"), tokenizer, doc_id=f.stem, module="docs", metadata=meta
+        )
+    return nodes
+
+
+def synthetic_index(torch, n_rows: int, dim: int, device: str = "cuda"):
+    """``n_rows`` leaves, two per ~512-token parent, texts from a shared pool
+    of POOL_SIZE strings, rows random unit vectors from SEED."""
+    import numpy as np
+
+    from tensortruth_tpu_torch.shared import HierarchyStore, Node, VectorIndex
+
+    words = "retrieval engine shard merge index token kernel matmul embed chunk".split()
+    pool = [
+        " ".join(f"c{j}" if i == 0 else words[(i + j) % len(words)] for i in range(CHUNK_WORDS[j % len(CHUNK_WORDS)]))
+        for j in range(POOL_SIZE)
+    ]
+    parents = [pool[2 * j] + " " + pool[2 * j + 1] for j in range(POOL_SIZE // 2)]
+    store = HierarchyStore()
+    for p in range(-(-n_rows // 2)):
+        doc = f"synthetic_{p // 64}"
+        meta = {"filename": f"{doc}.md", "doc_type": "library"}
+        kids = [f"s{p}.{c}" for c in range(2) if 2 * p + c < n_rows]
+        store.add(Node(node_id=f"s{p}", text=parents[p % len(parents)], level=0, doc_id=doc,
+                       module="synthetic", child_ids=list(kids), metadata=meta))
+        for c, kid in enumerate(kids):
+            store.add(Node(node_id=kid, text=pool[(2 * p + c) % POOL_SIZE], level=1, doc_id=doc,
+                           module="synthetic", parent_id=f"s{p}", metadata=meta))
+    row_ids = store.finalize_leaves()
+    check(len(row_ids) == n_rows, f"synthetic module has {len(row_ids)} leaves, wanted {n_rows}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    emb = unit_rows(torch, gen, n_rows, dim, torch.float32).cpu().numpy().astype(np.float32)
+    meta = {"embedding_model": "BAAI/bge-m3", "gelu": "exact", "chunk_sizes": [512, 256]}
+    return VectorIndex(emb, row_ids, store, meta)
+
+
+@dataclass
+class Delta:
+    """One streamed chunk of the chat model's answer."""
+
+    text: str = ""
+    thinking: str = ""
+
+
+class StubLLM:
+    """Stands in for the chat model; echoes how much context it was given."""
+
+    def __init__(self):
+        self.prompts = []
+
+    def complete(self, prompt):
+        return prompt
+
+    def stream_chat(self, messages, system=None):
+        self.prompts.append(messages[-1]["content"])
+        yield Delta(text=f"stub answer over {len(messages[-1]['content'])} prompt chars")
+
+
+def long_passage(tokenizer, min_tokens: int = 640) -> str:
+    """A pasted passage of SURVEY.md just over ``min_tokens`` tokens: its
+    embedder bucket is 1024, and so are its rerank pairs'."""
+    words = (ROOT / "SURVEY.md").read_text(encoding="utf-8").split()
+    n = 64
+    while len(tokenizer.encode(" ".join(words[:n]))) < min_tokens:
+        n += 8
+    return " ".join(words[:n])
+
+
+def profile_request(torch, svc, text: str) -> None:
+    """Replay one request (cache cleared, shapes warm) under torch.profiler:
+    wall time against the device's kernel time, and the kernels that
+    dominate it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    svc.engine.retriever.clear_cache()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        svc.retrieve(text)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    n = sum(e.count for e in kernels)
+    log(f"profiled replay of request 0: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}% of wall) in {n} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def run_main_path(torch, work: Path) -> dict:
+    from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
+    from tensortruth_tpu_torch.ops.attention import blocked_attention
+    from tensortruth_tpu_torch.ops.topk import exact_topk, fused_topk
+    from tensortruth_tpu_torch.services.rag_service import RAGService
+    from tensortruth_tpu_torch.shared import TensorTruthTPUConfig, VectorIndex
+
+    t0 = time.perf_counter()
+    embedder = ModelManager.get_instance().get_embedder(ModelSpec("BAAI/bge-m3"), device="cuda")
+    model_dir = work / "indexes" / "bge-m3"
+    nodes = docs_nodes(embedder.tokenizer)
+    docs = VectorIndex.build(nodes, embedder.encode, embedding_model="BAAI/bge-m3",
+                             chunk_sizes=[2048, 512, 256], gelu_flavor=embedder.gelu_flavor)
+    docs.save(model_dir / "docs")
+    synthetic_index(torch, CORPUS_ROWS - docs.n_rows, embedder.dim).save(model_dir / "synthetic")
+    log(f"index: docs {docs.n_rows} leaves ({len(nodes)} nodes), synthetic "
+        f"{CORPUS_ROWS - docs.n_rows} leaves, written in {time.perf_counter() - t0:.1f} s")
+
+    llm = StubLLM()
+    svc = RAGService(config=TensorTruthTPUConfig.default(), llm_factory=lambda params: llm)
+    t0 = time.perf_counter()
+    engine = svc.load_engine(["docs", "synthetic"], {"reranker_top_n": 5},
+                             indexes_dir=work / "indexes", device="cuda")
+    log(f"engine: loaded in {time.perf_counter() - t0:.1f} s")
+    corpus = engine.retriever._stacked
+    check(corpus.is_cuda and tuple(corpus.shape) == (CORPUS_ROWS, 1024) and engine.retriever.n_chunks == CORPUS_ROWS,
+          f"corpus {tuple(corpus.shape)} on {corpus.device}, {engine.retriever.n_chunks} rows")
+    for name, runtime in (("embedder", engine.embedder), ("reranker", engine.reranker)):
+        n_params = sum(p.numel() for p in runtime.model.parameters())
+        check(all(p.is_cuda for p in runtime.model.parameters()), f"{name} parameters off the card")
+        check(runtime.cfg.hidden_size == 1024 and runtime.cfg.num_layers == 24, f"{name} not at full width")
+        log(f"{name}: {runtime.model_id}, {n_params} parameters, {runtime.model.dtype} on {runtime.device}")
+    check(engine.pipeline is not None and engine.retriever.use_fused, "fused query step not in use")
+
+    questions = [
+        "How does the engine merge leaf chunks into their parents?",
+        "What does the confidence gate do when the best rerank score is low?",
+        "How are multiple module indexes stacked into one corpus matrix?",
+        "Which models embed queries and rerank candidates?",
+        "How is the server's chat protocol framed over the websocket?",
+        "What happens when a module index is missing or corrupt?",
+        long_passage(embedder.tokenizer),
+    ]
+    n_long = len(embedder.tokenizer.encode(questions[-1]))
+    questions.append("How are documents chunked into a hierarchy before indexing?")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_topk.launches = 0
+    blocked_attention.launches = 0
+    request_ms, results = [], []
+    for text in questions:
+        t = time.perf_counter()
+        results.append(svc.retrieve(text))
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    gen = svc.query("Summarise how a query flows from embedding to the reranked answer.")
+    try:
+        while True:
+            next(gen)
+    except StopIteration as stop:
+        response = stop.value
+    torch.cuda.synchronize()
+    request_ms.append((time.perf_counter() - t) * 1e3)
+    launches = {"fused_topk": fused_topk.launches, "blocked_attention": blocked_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    for text, r in zip(questions, results):
+        check(r.sources, f"no sources for {text[:40]!r}")
+        for s in r.sources:
+            check(s.score is not None and 0.0 <= s.score <= 1.0, f"bad rerank score {s.score}")
+        check(r.confidence in ("normal", "low"), f"confidence {r.confidence}")
+    check(response.sources and response.text.startswith("stub answer"), "query() gave no answer")
+    check(llm.prompts and "[1]" in llm.prompts[-1], "query() sent no retrieved context to the LLM")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+    log(f"requests: {len(request_ms)} (8 retrieve + 1 query), longest request {n_long} tokens")
+    log("request ms: " + ", ".join(f"{ms:.1f}" for ms in request_ms))
+    log(f"sources per request: {[len(r.sources) for r in results] + [len(response.sources)]}, "
+        f"confidence: {[r.confidence for r in results] + [response.confidence]}")
+    for i, r in enumerate(results + [response]):
+        stages = ", ".join(f"{k} {v:.1f}" for k, v in r.metrics["timings"].items() if isinstance(v, float))
+        log(f"request {i} stage ms (host clock): {stages}")
+    log(f"launches during the requests: {launches}")
+    log(f"peak device memory during the requests: {peak} bytes ({peak / 2**30:.2f} GiB)")
+
+    profile_request(torch, svc, questions[0])
+
+    # The fused top-k on this corpus against the exact one, same query embeddings.
+    q = torch.from_numpy(engine.embedder.encode(questions, is_query=True)).to("cuda", corpus.dtype)
+    _, fused_idx = fused_topk(q, corpus, 20, n_actual=CORPUS_ROWS)
+    _, exact_idx = exact_topk(q, corpus, 20, n_valid=CORPUS_ROWS)
+    hits = sum(len(set(f.tolist()) & set(x.tolist())) for f, x in zip(fused_idx.cpu(), exact_idx.cpu()))
+    recall = hits / exact_idx.numel()
+    check(recall >= MIN_RECALL, f"fused top-20 recall {recall} < {MIN_RECALL}")
+    log(f"fused vs exact top-20 recall over the corpus: {recall:.4f}")
+    return launches
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    from tensortruth_tpu_torch import _build  # fails here outside a checkout
+
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
+    for var, sub in (
+        ("TENSOR_TRUTH_TPU_DATA_DIR", "data"),
+        ("TENSOR_TRUTH_TPU_NATIVE_CACHE", "native"),
+        ("TENSOR_TRUTH_TPU_MODELS_DIR", "models"),
+        ("HF_HUB_CACHE", "hf"),
+    ):
+        os.environ[var] = str(work / sub)
+    try:
+        card = card_line()
+        log(f"card: {card}")
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+        t0 = time.perf_counter()
+        _build.load()
+        built = f"compiled in {_build.build_seconds:.1f} s" if _build.build_seconds else "already built"
+        log(f"build: {_build.library_path().relative_to(ROOT)} {built}, ready in {time.perf_counter() - t0:.1f} s")
+
+        measured = {"fused_topk": check_fused_topk(torch), "blocked_attention": check_attention(torch)}
+        launches = run_main_path(torch, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    kernels = [
+        {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}
+        for name in KERNELS
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,11 @@
+"""tensortruth_tpu_torch: the engine's online query path in PyTorch + CUDA.
+
+A port of ``tensortruth_tpu`` (the JAX/Pallas reference, which stays beside
+it) to PyTorch on NVIDIA Hopper. Plain tensor code is PyTorch; each TPU
+kernel on the path is a hand-written CUDA C++ kernel under ``csrc/``, built
+with nvcc at first use (``_build.py``). Host modules of the reference that
+never import jax (index store, tokenizer, config, prompts, chat history) are
+shared, not copied. No module here imports jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,120 @@
+"""Dense embedder runtime: tokenize -> sort by length -> bucket -> forward.
+
+Port of ``tensortruth_tpu/models/embedder.py``. Texts are tokenized once per
+slab, sorted longest first so each device batch pads to the tightest
+(batch, seq) bucket, and every batch of a slab is launched before the
+previous slab's embeddings come back to the host in ONE device-to-host copy.
+
+The bucket sets are the reference's, tuned on a TPU and not yet re-measured
+on the H100.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from tensortruth_tpu_torch.models.xlmr import XLMRConfig, XLMRModel, cls_embed, use_approx_gelu
+
+
+def bucket(value: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= value (the largest if none is)."""
+    for b in buckets:
+        if value <= b:
+            return b
+    return buckets[-1]
+
+
+def pad_batch(ids: np.ndarray, mask: np.ndarray, sel: np.ndarray, bsz: int, seq: int, pad_id: int):
+    """Rows ``sel`` of (ids, mask) cut to ``seq`` and padded to ``bsz`` rows."""
+    ids_p = np.full((bsz, seq), pad_id, dtype=np.int32)
+    mask_p = np.zeros((bsz, seq), dtype=np.int32)
+    ids_p[: len(sel)] = ids[sel, :seq]
+    mask_p[: len(sel)] = mask[sel, :seq]
+    return ids_p, mask_p
+
+
+class Embedder:
+    """Holds the encoder on its device; encodes host-side text."""
+
+    def __init__(
+        self,
+        model: XLMRModel,
+        tokenizer,
+        max_length: int = 2048,
+        batch_buckets: Sequence[int] = (16, 64, 256),
+        seq_buckets: Sequence[int] = (128, 256, 384, 512, 1024, 2048),
+        query_prefix: str = "",
+    ):
+        self.model = model
+        self.cfg: XLMRConfig = model.cfg
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+        self.batch_buckets = tuple(sorted(batch_buckets))
+        self.seq_buckets = tuple(sorted(set(min(b, max_length) for b in seq_buckets)))
+        self.query_prefix = query_prefix
+
+    @classmethod
+    def random_init(
+        cls, cfg: XLMRConfig, tokenizer, device, dtype=torch.bfloat16, seed: int = 0, **kw
+    ) -> "Embedder":
+        """Random weights at the configured width (no checkpoint on disk)."""
+        return cls(XLMRModel.random_init(cfg, device, dtype=dtype, seed=seed), tokenizer, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    @property
+    def dim(self) -> int:
+        return self.cfg.hidden_size
+
+    @property
+    def gelu_flavor(self) -> str:
+        """"tanh" or "exact": recorded in index metadata at build time so a
+        query-side mismatch is detectable at engine load."""
+        return "tanh" if use_approx_gelu(self.cfg) else "exact"
+
+    def param_bytes(self) -> int:
+        return self.model.param_bytes()
+
+    def to_device(self, ids_p: np.ndarray, mask_p: np.ndarray):
+        dev = self.device
+        return torch.from_numpy(ids_p).to(dev), torch.from_numpy(mask_p).to(dev)
+
+    def encode(
+        self, texts: Sequence[str], is_query: bool = False, batch_size: int | None = None
+    ) -> np.ndarray:
+        """Embed texts -> (len(texts), H) f32 L2-normalised numpy array."""
+        if not texts:
+            return np.zeros((0, self.cfg.hidden_size), dtype=np.float32)
+        if is_query and self.query_prefix:
+            texts = [self.query_prefix + t for t in texts]
+
+        max_batch = min(batch_size or self.batch_buckets[-1], self.batch_buckets[-1])
+        slab = max(8 * max_batch, 2048)
+        out = np.empty((len(texts), self.cfg.hidden_size), dtype=np.float32)
+        prev = None  # (global row selection, device embeddings) of the last slab
+        with torch.inference_mode():
+            for slab_start in range(0, len(texts), slab):
+                chunk = list(texts[slab_start : slab_start + slab])
+                ids, mask = self.tokenizer.encode_batch(chunk, self.max_length)
+                lengths = mask.sum(axis=1)
+                order = np.argsort(-lengths, kind="stable")  # longest first
+                sels, embs = [], []
+                for start in range(0, len(chunk), max_batch):
+                    sel = order[start : start + max_batch]
+                    seq = bucket(int(lengths[sel].max()), self.seq_buckets)
+                    bsz = bucket(len(sel), self.batch_buckets)
+                    ids_p, mask_p = pad_batch(ids, mask, sel, bsz, seq, self.tokenizer.pad_id)
+                    embs.append(cls_embed(self.model, *self.to_device(ids_p, mask_p))[: len(sel)])
+                    sels.append(slab_start + sel)
+                # Drain one slab behind the launch front: the current slab is
+                # queued on the device while the previous one copies back.
+                if prev is not None:
+                    out[prev[0]] = prev[1].cpu().numpy()
+                prev = (np.concatenate(sels), torch.cat(embs))
+            out[prev[0]] = prev[1].cpu().numpy()
+        return out

@@ -1,0 +1,253 @@
+"""Dense top-k over the stacked corpus: exact, and fused matmul + bucketed top-k.
+
+Port of ``tensortruth_tpu/ops/topk.py``. ``fused_topk`` keeps the reference's
+candidate semantics exactly: per ``tile_n`` row tile, ``tile_n // m``
+strided-bucket maxima max-merged into a ``(B, c_out)`` accumulator where tile
+``t * n_rot + b`` feeds candidate block ``b``, earlier segment and earlier
+tile winning ties, then an exact top-k over the candidates. Expected loss of
+a true top-k item is about k^2 / (2 c_out).
+
+Dispatch: a CUDA tensor goes to the hand-written kernel
+(``csrc/fused_topk.cu``) or raises; only CPU tensors take the plain PyTorch
+version, :func:`fused_candidates_plain`.
+
+Ties: ``lax.top_k`` puts the lower index first and ``torch.topk`` promises no
+order, so every final selection here is a stable descending sort.
+
+The constants (``tile_n=2048``, ``c_out=2048``, ``m=1``, the 4096-row exact
+cut-over) are the reference's, tuned on a TPU and not yet re-measured on the
+H100.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from tensortruth_tpu_torch import _build
+from tensortruth_tpu_torch.ops.matmul import mm_f32
+
+NEG_INF = float("-inf")
+EXACT_MAX_ROWS = 4096  # topk_search / embed_topk use the exact path up to here
+
+
+def _sorted_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along dim 1, ties broken toward the lower index (lax.top_k order)."""
+    vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def pad_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
+    """Pad (B, k_eff) results to k columns with -inf / -1."""
+    short = k - vals.shape[1]
+    if short <= 0:
+        return vals, idx
+    b = vals.shape[0]
+    vals = torch.cat([vals, vals.new_full((b, short), NEG_INF)], dim=1)
+    idx = torch.cat([idx, idx.new_full((b, short), -1)], dim=1)
+    return vals, idx
+
+
+def exact_topk(
+    q: torch.Tensor, emb: torch.Tensor, k: int, n_valid: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full (B, N) f32 score matrix, then top-k. Rows >= ``n_valid`` are
+    masked to -inf first. Returns (scores (B, k) f32, indices (B, k) int32)."""
+    scores = mm_f32(q, emb.t())
+    if n_valid is not None:
+        col = torch.arange(scores.shape[1], device=scores.device)
+        scores = scores.masked_fill(col >= n_valid, NEG_INF)
+    vals, idx = _sorted_topk(scores, k)
+    return vals, idx.to(torch.int32)
+
+
+def _geometry(n: int, n_actual: int, tile_n: int, m: int, c_out: int):
+    """(c, c_out, n_rot, inner, num_tiles), as the reference derives them."""
+    if tile_n % m != 0:
+        raise ValueError(f"tile_n {tile_n} must be a multiple of m {m}")
+    c = tile_n // m
+    if c % 128 != 0:
+        raise ValueError(f"tile_n//m must be a multiple of 128, got {tile_n}//{m}={c}")
+    c_out = max(c, min(c_out, -(-n_actual // tile_n) * c))  # <= N/m wide
+    c_out = -(-c_out // c) * c  # multiple of c
+    num_tiles = -(-n // tile_n)
+    n_rot = c_out // c
+    inner = -(-num_tiles // n_rot)
+    return c, c_out, n_rot, inner, num_tiles
+
+
+def fused_candidates_plain(
+    q: torch.Tensor, emb: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B1: the (B, c_out) candidate values
+    and global row indices, bit-for-bit the reference's bucketing.
+
+    Global row of (tile step t, block r, segment i, slot j) is
+    ``((t * n_rot + r) * m + i) * c + j``. Each (block, slot) keeps the
+    FIRST maximum over the (t, i) sequence in lexicographic order — the
+    reference's strict ``>`` over segments, then over tiles — taken here by
+    an explicit smallest-position rule, not by ``argmax``'s tie behaviour.
+    """
+    b, n = q.shape[0], emb.shape[0]
+    c, c_out, n_rot, inner, _ = _geometry(n, n_actual, tile_n, m, c_out)
+    rows = inner * n_rot * tile_n
+    scores = mm_f32(q, emb.t())
+    scores = torch.nn.functional.pad(scores, (0, rows - n), value=NEG_INF)
+    col = torch.arange(rows, device=scores.device)
+    scores = scores.masked_fill(col >= n_actual, NEG_INF)
+    # (B, t, r, i, j) -> (B, r, j, t·i): the per-slot merge sequence
+    seq = scores.view(b, inner, n_rot, m, c).permute(0, 2, 4, 1, 3).reshape(b, n_rot, c, inner * m)
+    best = seq.amax(dim=-1)
+    steps = inner * m
+    pos = torch.arange(steps, device=seq.device)
+    first = torch.where(seq == best.unsqueeze(-1), pos, steps).amin(dim=-1)
+    t, i = first // m, first % m
+    r = torch.arange(n_rot, device=seq.device).view(1, n_rot, 1)
+    j = torch.arange(c, device=seq.device).view(1, 1, c)
+    idx = ((t * n_rot + r) * m + i) * c + j
+    idx = torch.where(best == NEG_INF, -1, idx)
+    return best.reshape(b, c_out), idx.reshape(b, c_out).to(torch.int32)
+
+
+_QB = 32  # queries per kernel block (csrc/fused_topk.cu kQB)
+_SJ = 64  # candidate slots per kernel step (kSJ)
+_MAX_D = 2048  # the block's queries are staged in shared memory
+_resident: dict[tuple[torch.device, int], int] = {}
+
+
+def _resident_blocks(device: torch.device, d: int) -> int:
+    """Partial-pass blocks ``device`` runs at once (occupancy x SMs) at
+    dimension ``d``, cached."""
+    if (device, d) not in _resident:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _build.load().tt_fused_topk_resident_blocks(d, ctypes.byref(out))
+        _build.check(err, "fused_topk occupancy")
+        _resident[(device, d)] = out.value
+    return _resident[(device, d)]
+
+
+def fused_candidates_cuda(
+    q: torch.Tensor, emb: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B1 on the card: same contract as :func:`fused_candidates_plain`.
+    Raises on any input the kernel does not take."""
+    if q.dtype != torch.bfloat16 or emb.dtype != torch.bfloat16:
+        raise TypeError(f"fused_topk kernel takes bfloat16 q and emb, got {q.dtype}, {emb.dtype}")
+    if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1]:
+        raise ValueError(f"fused_topk shapes {tuple(q.shape)} x {tuple(emb.shape)}")
+    if not (q.is_contiguous() and emb.is_contiguous()):
+        raise ValueError("fused_topk kernel needs contiguous q and emb")
+    b, d = q.shape
+    n = emb.shape[0]
+    if d % 16 != 0 or d > _MAX_D:
+        raise ValueError(f"fused_topk kernel needs D % 16 == 0 and D <= {_MAX_D}, got {d}")
+    if not (q.is_cuda and emb.is_cuda and q.device == emb.device):
+        raise ValueError(f"fused_topk kernel needs q and emb on one CUDA device, got {q.device}, {emb.device}")
+    c, c_out, n_rot, inner, num_tiles = _geometry(n, n_actual, tile_n, m, c_out)
+    if c % _SJ != 0:
+        raise ValueError(f"fused_topk kernel needs tile_n//m % {_SJ} == 0, got {c}")
+    b_pad = -(-b // _QB) * _QB
+    if b_pad != b:
+        q = torch.nn.functional.pad(q, (0, 0, 0, b_pad - b))
+    if num_tiles * tile_n != n:
+        # Copies the corpus; the engine pre-pads once at placement instead.
+        emb = torch.nn.functional.pad(emb, (0, 0, 0, num_tiles * tile_n - n))
+    if emb.data_ptr() % 32 or q.data_ptr() % 32:
+        raise ValueError("fused_topk kernel needs 32-byte aligned q and emb")
+
+    # One wave of partial-pass blocks: as many tile ranges as fit at once.
+    blocks_per_range = (c // _SJ) * n_rot * (b_pad // _QB)
+    n_ranges = max(1, min(inner, _resident_blocks(q.device, d) // blocks_per_range))
+    part_vals = torch.empty((n_ranges, b_pad, c_out), dtype=torch.float32, device=q.device)
+    part_idx = torch.empty((n_ranges, b_pad, c_out), dtype=torch.int32, device=q.device)
+    cand_vals = torch.empty((b_pad, c_out), dtype=torch.float32, device=q.device)
+    cand_idx = torch.empty((b_pad, c_out), dtype=torch.int32, device=q.device)
+    err = _build.load().tt_fused_topk_candidates(
+        q.data_ptr(), emb.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(),
+        cand_vals.data_ptr(), cand_idx.data_ptr(),
+        b_pad, d, n_actual, tile_n, m, n_rot, inner, n_ranges, _build.stream_of(q),
+    )
+    _build.check(err, "fused_topk")
+    fused_topk.launches += 1
+    return cand_vals[:b], cand_idx[:b]
+
+
+def fused_topk(
+    q: torch.Tensor,
+    emb: torch.Tensor,
+    k: int,
+    m: int = 1,
+    tile_n: int = 2048,
+    c_out: int = 2048,
+    n_actual: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused matmul + bucketed top-k. Same returns as :func:`exact_topk`.
+
+    q (B, D), emb (N, D), both L2-normalised. ``n_actual`` is the valid-row
+    count (rows past it are padding). On CUDA tensors this launches kernel B1
+    (bf16 only); on CPU tensors it runs the plain version.
+    """
+    n_actual = emb.shape[0] if n_actual is None else n_actual
+    candidates = fused_candidates_cuda if (q.is_cuda or emb.is_cuda) else fused_candidates_plain
+    cand = candidates(q, emb, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    return select_topk(*cand, k, n_actual)
+
+
+fused_topk.launches = 0  # kernel launches (CUDA path only)
+
+
+def fused_topk_plain(
+    q: torch.Tensor,
+    emb: torch.Tensor,
+    k: int,
+    m: int = 1,
+    tile_n: int = 2048,
+    c_out: int = 2048,
+    n_actual: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_topk` through the plain version on any device (what the
+    kernel is held against)."""
+    n_actual = emb.shape[0] if n_actual is None else n_actual
+    cand = fused_candidates_plain(q, emb, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    return select_topk(*cand, k, n_actual)
+
+
+def select_topk(cand_vals: torch.Tensor, cand_idx: torch.Tensor, k: int, n_actual: int):
+    """Exact top-k over the (B, c_out) candidates, padded to k with -inf / -1."""
+    k_eff = min(k, n_actual, cand_vals.shape[1])
+    vals, pos = _sorted_topk(cand_vals, k_eff)
+    return pad_topk(vals, torch.gather(cand_idx, 1, pos), k)
+
+
+def topk_search(
+    q: torch.Tensor,
+    emb: torch.Tensor,
+    k: int,
+    *,
+    exact: bool = False,
+    m: int = 1,
+    tile_n: int = 2048,
+    n_actual: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact path for small corpora or ``exact=True``, fused otherwise."""
+    n = emb.shape[0]
+    n_actual = n if n_actual is None else n_actual
+    if exact or n_actual <= EXACT_MAX_ROWS:
+        k_eff = min(k, n_actual)
+        vals, idx = exact_topk(q, emb[:n_actual] if n_actual < n else emb, k_eff)
+        return pad_topk(vals, idx, k)
+    return fused_topk(q, emb, k, m=m, tile_n=tile_n, n_actual=n_actual)
+
+
+def pad_corpus_for_fused(emb: np.ndarray, tile_n: int = 2048) -> tuple[np.ndarray, int]:
+    """Pad an (N, D) host matrix to a tile multiple once before device
+    placement; pass the true N as ``n_actual`` to :func:`fused_topk`."""
+    n = emb.shape[0]
+    n_pad = -(-n // tile_n) * tile_n
+    if n_pad == n:
+        return emb, n
+    pad = np.zeros((n_pad - n, emb.shape[1]), dtype=emb.dtype)
+    return np.concatenate([emb, pad], axis=0), n

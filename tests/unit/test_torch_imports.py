@@ -1,0 +1,135 @@
+"""Import isolation and dispatch guards of the PyTorch/CUDA port.
+
+* Importing every module of ``tensortruth_tpu_torch`` (in a fresh
+  interpreter) leaves ``jax`` and ``triton`` out of ``sys.modules`` and
+  builds nothing; ``chip_smoke.py`` imports only the port.
+* The CUDA-only wrappers raise on inputs their kernels do not take instead of
+  falling back; these checks run on the CPU because they come before the
+  device check.
+"""
+
+import ast
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tensortruth_tpu_torch.ops import attention, topk
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(__file__).resolve().parents[2] / "tensortruth_tpu_torch"
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import importlib, pkgutil, sys, tensortruth_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "from tensortruth_tpu_torch import _build\n"
+        "assert _build._lib is None and _build.build_seconds is None\n"
+        "print(len(mods), 'jax' in sys.modules, 'triton' in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         cwd=PKG.parent, check=True)
+    n, has_jax, has_triton = out.stdout.split()
+    assert int(n) >= 15
+    assert (has_jax, has_triton) == ("False", "False"), out.stdout
+
+
+def test_chip_smoke_imports_only_the_port():
+    """The GPU smoke script drives the port: it imports no jax and no module
+    of the reference package (shared host code comes through the port's
+    ``shared`` module)."""
+    tree = ast.parse((PKG.parent / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert "tensortruth_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "tensortruth_tpu"}, roots
+
+
+def test_package_sources_avoid_forbidden_shortcuts():
+    """No packaged attention, no compiler shortcut, no jax, and no kernel
+    wrapper that catches an error to run the plain version."""
+    for path in PKG.rglob("*.py"):
+        src = path.read_text()
+        assert "scaled_dot_product_attention" not in src, path
+        assert "torch.compile" not in src, path
+        assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path
+    for path in (PKG / "ops" / "topk.py", PKG / "ops" / "attention.py"):
+        assert "except" not in path.read_text(), path
+
+
+def _q(dtype=torch.bfloat16, n=4, d=32):
+    return torch.zeros((n, d), dtype=dtype)
+
+
+@pytest.mark.parametrize(
+    "q,emb,err",
+    [
+        (_q(torch.float32), _q(n=2048), TypeError),  # wrong dtype
+        (_q(), _q(torch.float16, n=2048), TypeError),
+        (_q(d=64)[:, ::2], _q(n=2048), ValueError),  # non-contiguous
+        (_q(), _q(n=4096, d=64)[:, ::2], ValueError),
+        (_q(d=24), _q(n=2048, d=24), ValueError),  # D % 16
+        (_q(d=4096), _q(n=2048, d=4096), ValueError),  # queries exceed shared memory
+        (_q(), _q(n=2048), ValueError),  # CPU tensors
+    ],
+)
+def test_fused_topk_kernel_wrapper_refuses(q, emb, err):
+    with pytest.raises(err):
+        topk.fused_candidates_cuda(q, emb, tile_n=2048, m=1, c_out=2048, n_actual=emb.shape[0])
+
+
+def _qkv(dtype=torch.bfloat16, s=256, dh=64):
+    return torch.zeros((2, 2, s, dh), dtype=dtype)
+
+
+@pytest.mark.parametrize(
+    "q,k,mask,err",
+    [
+        (_qkv(torch.float32), _qkv(torch.float32), torch.ones((2, 256), dtype=torch.int32), TypeError),
+        (_qkv(dh=32), _qkv(dh=32), torch.ones((2, 256), dtype=torch.int32), ValueError),  # head dim
+        (_qkv(), _qkv().transpose(2, 3).contiguous().transpose(2, 3), torch.ones((2, 256), dtype=torch.int32),
+         ValueError),  # k strided differently from q
+        (_qkv(), _qkv(), torch.ones((2, 256), dtype=torch.int64), ValueError),  # mask dtype
+        (_qkv(), _qkv(), torch.ones((2, 256), dtype=torch.int32), ValueError),  # CPU tensors
+    ],
+)
+def test_attention_kernel_wrapper_refuses(q, k, mask, err):
+    with pytest.raises(err):
+        attention.blocked_attention_cuda(q, k, k, mask)
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    before = (topk.fused_topk.launches, attention.blocked_attention.launches)
+    topk.fused_topk(torch.randn(3, 16), torch.randn(5000, 16), 5)
+    q = torch.randn(1, 1, 256, 16)
+    attention.blocked_attention(q, q, q, torch.ones((1, 256), dtype=torch.int32))
+    assert (topk.fused_topk.launches, attention.blocked_attention.launches) == before
+
+
+def test_engine_default_device_is_cuda_and_never_moves_to_cpu():
+    """No code path moves to the CPU when CUDA is missing: asking for the
+    default device on a machine without CUDA fails loudly."""
+    import numpy as np
+
+    from tensortruth_tpu.index import HierarchyStore, Node, VectorIndex
+    from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
+
+    store = HierarchyStore()
+    store.add(Node(node_id="a", text="a", level=0, doc_id="d"))
+    rows = store.finalize_leaves()
+    idx = VectorIndex(np.ones((1, 8), np.float32), rows, store)
+    engine = MultiIndexEngine({"m": idx}, device="cpu")
+    assert engine._stacked.device.type == "cpu" and not engine.use_fused
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            MultiIndexEngine({"m": idx})

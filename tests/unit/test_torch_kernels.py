@@ -1,0 +1,100 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions.
+
+These need an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip
+elsewhere. Run them on a GPU machine with
+
+    python -m pytest tests/unit/test_torch_kernels.py -m requires_cuda -q
+
+Tolerances: kernel B1 (fused top-k) and its plain version both sum exact
+bf16 products in float32, so values agree within 1e-4 and indices may differ
+only where the two scores at that rank are within it; integer-valued inputs
+make every score exact and then the results must be identical. Kernel B3
+(attention) agrees within 2e-2 absolute on N(0, 1) inputs: both round the
+output to bf16, and they round the softmax weights at different points.
+"""
+
+import pytest
+import torch
+
+from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention
+from tensortruth_tpu_torch.ops.topk import fused_topk, fused_topk_plain
+
+pytestmark = pytest.mark.requires_cuda
+
+TOPK_TOL = 1e-4
+ATTN_TOL = 2e-2
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _unit(gen, n, d):
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    return (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "b,n,d,k,m,c_out,n_actual",
+    [
+        (1, 5000, 64, 10, 1, 2048, 5000),       # one query padded to a block
+        (5, 70_000, 128, 100, 1, 2048, 69_001),  # ragged n_actual inside a tile
+        (33, 20_000, 1024, 50, 2, 2048, 20_000),  # m = 2, two query blocks
+        (8, 40_960, 256, 30, 1, 8192, 40_960),   # n_rot = 4
+        (3, 3000, 64, 500, 1, 2048, 300),        # k > n_actual: -inf / -1 padding
+    ],
+)
+def test_fused_topk_kernel_matches_plain(gen, b, n, d, k, m, c_out, n_actual):
+    q, e = _unit(gen, b, d), _unit(gen, n, d)
+    vals, idx = fused_topk(q, e, k, m=m, c_out=c_out, n_actual=n_actual)
+    pvals, pidx = fused_topk_plain(q, e, k, m=m, c_out=c_out, n_actual=n_actual)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(pvals)
+    assert torch.equal(finite, torch.isfinite(vals))
+    assert torch.equal(idx[~finite], pidx[~finite])
+    diff = (vals[finite] - pvals[finite]).abs()
+    assert diff.max().item() <= TOPK_TOL
+    assert not ((idx[finite] != pidx[finite]) & (diff > TOPK_TOL)).any()
+
+
+def test_fused_topk_kernel_planted_ties_exact(gen):
+    q = torch.randint(-2, 3, (7, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    e = torch.randint(-2, 3, (3000, 64), generator=gen, device="cuda").to(torch.bfloat16).repeat(3, 1)
+    for m in (1, 2):
+        got = fused_topk(q, e, 80, m=m, n_actual=8900)
+        want = fused_topk_plain(q, e, 80, m=m, n_actual=8900)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fused_topk_counts_launches(gen):
+    before = fused_topk.launches
+    fused_topk(_unit(gen, 2, 64), _unit(gen, 4096, 64), 5)
+    assert fused_topk.launches == before + 1
+
+
+@pytest.mark.parametrize("b,nh,s", [(2, 3, 256), (3, 16, 512), (1, 2, 2048)])
+def test_attention_kernel_matches_plain(gen, b, nh, s):
+    q, k, v = (torch.randn((b, nh, s, 64), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    lengths[-1] = 0  # a fully padded row
+    mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
+    out = blocked_attention(q, k, v, mask)
+    ref = attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATTN_TOL
+
+
+def test_attention_kernel_takes_transposed_projections(gen):
+    """The encoder passes (B, S, NH, DH) projections as (B, NH, S, DH) views."""
+    b, s, nh = 2, 512, 4
+    q, k, v = (torch.randn((b, s, nh, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    mask = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    mask[1, 300:] = 0
+    got = blocked_attention(q, k, v, mask)
+    want = blocked_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
