@@ -8,8 +8,9 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
 2. build: compile the hand-written kernels (``tensortruth_tpu_torch/csrc``)
    with nvcc into ``tensortruth_tpu_torch/_build/``;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes, with the tolerance stated below, and both timed
-   with CUDA events;
+   the shapes its path gives it, with the tolerance stated below, and both
+   timed with CUDA events: B1 fused top-k, B2 its int8 variant, B3
+   attention, B4 the IVF probe over bf16 and over int8 blocks;
 4. main path: write a two-module index (this repository's own docs, chunked
    and embedded by the port, plus a synthetic module that brings the
    stacked corpus to 262,144 leaf rows), load it with the port's
@@ -18,7 +19,17 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    answer 8 requests through ``RAGService.retrieve()`` and one through
    ``query()`` with a stub LLM, and check the answers, the placement on the
    card, the recall of the fused top-k against the exact one, and that
-   every kernel of the path was launched during the requests.
+   every kernel of the path was launched during the requests;
+5. capacity path: one more module brings the docs to 2,097,152 rows (the
+   smallest power of two above the 2M-row IVF threshold). Through
+   ``load_engine`` it is served (a) as the int8 flat tier (``corpus_dtype:
+   int8``: kernel B2) and (b) with default params as the IVF tier over bf16
+   blocks (B4), each answering 4 ``retrieve()`` requests; (c) a
+   ``MultiIndexEngine`` over the same indexes with ``corpus_dtype="int8"``
+   and ``ivf_threshold=1_048_576`` takes the IVF tier over int8 blocks (B4's
+   int8 variant) and answers one 32-query batch. Each checks its placement,
+   its answers, a recall or self-retrieval rate, and that its kernel was
+   launched while it was driven.
 
 The last three lines are the card's name and power limit, a JSON object
 describing each kernel, and the final ``{"ok": true, "device": ...}`` line.
@@ -35,6 +46,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -49,11 +61,23 @@ TOPK_TOL = 1e-4
 # weights to bf16 and the plain version the normalised ones, and both round
 # the output to bf16 (ulp 2^-8 below 1.0). Inputs are N(0, 1).
 ATTN_TOL = 2e-2
+# Kernel B4 vs its plain version: both sum exact bf16 products in f32, in
+# different orders (B4's int8 variant then applies one f32 scale); padding
+# slots are -inf in both, exactly.
+PROBE_TOL = 1e-4
 # Fused vs exact top-20 over the main path's corpus: expected loss of the
-# bucketed candidates is about k^2 / (2 c_out) = 0.1 items of 20.
+# bucketed candidates is about k^2 / (2 c_out) = 0.1 items of 20. The same
+# holds for B2 against the exact top-20 over its own (dequantised) scores.
 MIN_RECALL = 0.9
+# A corpus row used as a query finds itself at rank 0 unless it was spilled
+# out of the clusters its own vector probes.
+MIN_SELF_RETRIEVAL = 0.95
 
 CORPUS_ROWS = 262_144  # 128 tiles of 2048
+CAPACITY_ROWS = 2_097_152  # 1024 tiles: the smallest power of two past the 2M IVF threshold
+# The IVF tier's probe shapes: 32 queries, the engine's nprobe and cluster
+# count, rows per cluster as build_ivf sizes them for 2M random rows.
+PROBE_SHAPE = {"b": 32, "nprobe": 32, "clusters": 1024, "rpc": 3072, "d": 1024}
 # Leaf word counts of the synthetic module (bench.py:76): about 275 / 147 /
 # 250 tokens per rerank pair.
 CHUNK_WORDS = [242, 242, 242, 242, 242, 242, 118, 118, 118, 215]
@@ -65,10 +89,25 @@ KERNELS = {
         "source": "tensortruth_tpu_torch/csrc/fused_topk.cu",
         "replaces": "tensortruth_tpu/ops/topk.py:74",
     },
+    "fused_topk_int8": {
+        "route": "cuda",
+        "source": "tensortruth_tpu_torch/csrc/fused_topk.cu",
+        "replaces": "tensortruth_tpu/ops/topk.py:383",
+    },
     "blocked_attention": {
         "route": "cuda",
         "source": "tensortruth_tpu_torch/csrc/attention.cu",
         "replaces": "tensortruth_tpu/ops/attention.py:33",
+    },
+    "ivf_probe": {
+        "route": "cuda",
+        "source": "tensortruth_tpu_torch/csrc/ivf_probe.cu",
+        "replaces": "tensortruth_tpu/ops/ivf.py:124",
+    },
+    "ivf_probe_int8": {
+        "route": "cuda",
+        "source": "tensortruth_tpu_torch/csrc/ivf_probe.cu",
+        "replaces": "tensortruth_tpu/ops/ivf.py:124",
     },
 }
 
@@ -114,6 +153,21 @@ def unit_rows(torch, gen, n: int, d: int, dtype):
     return (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)).to(dtype)
 
 
+def gib(nbytes: int) -> str:
+    return f"{nbytes} bytes ({nbytes / 2**30:.2f} GiB)"
+
+
+def check_topk_agrees(name: str, got, want) -> tuple[float, int]:
+    """Values within TOPK_TOL; an index may differ only where the two scores
+    at that rank are within it. Returns (max |err|, index swaps)."""
+    (vals, idx), (pvals, pidx) = got, want
+    diff = (vals - pvals).abs()
+    err = diff.max().item()
+    bad = int(((idx != pidx) & (diff > TOPK_TOL)).sum())
+    check(err <= TOPK_TOL and bad == 0, f"{name}: max |err| {err}, {bad} index mismatches")
+    return err, int((idx != pidx).sum())
+
+
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
@@ -124,14 +178,9 @@ def check_fused_topk(torch) -> dict:
     b, n, d, k = 32, CORPUS_ROWS, 1024, 100
     q = unit_rows(torch, gen, b, d, torch.bfloat16)
     e = unit_rows(torch, gen, n, d, torch.bfloat16)
-    vals, idx = fused_topk(q, e, k)
-    pvals, pidx = fused_topk_plain(q, e, k)
+    got, want = fused_topk(q, e, k), fused_topk_plain(q, e, k)
     torch.cuda.synchronize()
-    diff = (vals - pvals).abs()
-    err = diff.max().item()
-    bad = int(((idx != pidx) & (diff > TOPK_TOL)).sum())
-    swapped = int((idx != pidx).sum())
-    check(err <= TOPK_TOL and bad == 0, f"fused_topk: max |err| {err}, {bad} index mismatches")
+    err, swapped = check_topk_agrees("fused_topk", got, want)
 
     # Planted ties: integer-valued rows make every dot product exact in f32
     # whatever the summation order, so tie order must match exactly.
@@ -149,6 +198,99 @@ def check_fused_topk(torch) -> dict:
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
     )
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_fused_topk_int8(torch) -> dict:
+    """B2 at the int8 flat tier's size: 2,097,152 rows of quantize_corpus."""
+    from tensortruth_tpu_torch.ops.topk import fused_topk_int8, fused_topk_int8_plain, quantize_corpus
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    b, n, d, k, step = 32, CAPACITY_ROWS, 1024, 100, 262_144
+    q = unit_rows(torch, gen, b, d, torch.bfloat16)
+    t0 = time.perf_counter()
+    e_q = torch.empty((n, d), dtype=torch.int8, device="cuda")
+    scales = torch.empty(n, dtype=torch.float32, device="cuda")
+    with ThreadPoolExecutor(8) as pool:  # numpy releases the GIL on these arrays
+        chunks = [unit_rows(torch, gen, step, d, torch.float32).cpu().numpy() for _ in range(0, n, step)]
+        for i, (rows_q, rows_s) in enumerate(pool.map(quantize_corpus, chunks)):
+            e_q[i * step : (i + 1) * step] = torch.from_numpy(rows_q)
+            scales[i * step : (i + 1) * step] = torch.from_numpy(rows_s)
+    del chunks
+    quantize_s = time.perf_counter() - t0
+    got, want = fused_topk_int8(q, e_q, scales, k), fused_topk_int8_plain(q, e_q, scales, k)
+    torch.cuda.synchronize()
+    err, swapped = check_topk_agrees("fused_topk_int8", got, want)
+    ms, plain_ms = in_turns(
+        torch, lambda: fused_topk_int8(q, e_q, scales, k), lambda: fused_topk_int8_plain(q, e_q, scales, k)
+    )
+    del e_q, scales, got, want
+    torch.cuda.empty_cache()  # the plain version's 4 GiB bf16 copy goes too
+
+    # Planted ties: integer rows at scale 1 score exactly in any order.
+    tie_n = 16_384
+    tq = torch.randint(-2, 3, (b, d), generator=gen, device="cuda").to(torch.bfloat16)
+    te = torch.randint(-2, 3, (tie_n // 4, d), generator=gen, device="cuda").to(torch.int8).repeat(4, 1)
+    ts = torch.ones(tie_n, device="cuda")
+    for n_actual in (tie_n - 100, 3000):  # the int8 tier has no exact cut-over: one tile too
+        tv, ti = fused_topk_int8(tq, te, ts, k, n_actual=n_actual)
+        pv, pi = fused_topk_int8_plain(tq, te, ts, k, n_actual=n_actual)
+        check(torch.equal(tv, pv) and torch.equal(ti, pi), f"fused_topk_int8: planted ties ordered differently ({n_actual})")
+    log(
+        f"kernel fused_topk_int8 B={b} N={n} D={d} k={k} int8 (quantize_corpus on the host, "
+        f"{quantize_s:.1f} s): max_abs_err={err:.3g} (tol {TOPK_TOL}), near-tie swaps={swapped}, "
+        f"planted ties exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+    )
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_ivf_probe(torch) -> dict[str, dict]:
+    """B4 over bf16 and over int8 blocks at the IVF tier's shapes, with
+    padding slots in every block and probe ids shared across queries."""
+    from tensortruth_tpu_torch.ops.ivf import probe_scores, probe_scores_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    b, nprobe, c, rpc, d = (PROBE_SHAPE[x] for x in ("b", "nprobe", "clusters", "rpc", "d"))
+    q = unit_rows(torch, gen, b, d, torch.bfloat16)
+    valid = (torch.rand((c, rpc), generator=gen, device="cuda") > 0.3).to(torch.int32)
+    valid[:, -128:] = 0  # every block ends in padding, as build_ivf leaves it
+    probe = torch.randint(0, c, (b, nprobe), generator=gen, device="cuda", dtype=torch.int32)
+    probe[:, 0] = probe[0, 0].item()  # one cluster every query probes
+    probe[1::2, 1] = probe[0, 1].item()  # and one half of them do
+    pad = valid[probe.long()] == 0
+    out = {}
+    for name in ("ivf_probe", "ivf_probe_int8"):
+        int8 = name.endswith("int8")
+        blocks = torch.empty((c, rpc, d), dtype=torch.int8 if int8 else torch.bfloat16, device="cuda")
+        scales = torch.empty((c, rpc), device="cuda") if int8 else None
+        for c0 in range(0, c, 64):
+            x = unit_rows(torch, gen, 64 * rpc, d, torch.float32)
+            if int8:  # quantize_corpus's arithmetic, on the card
+                s = x.abs().amax(dim=1).div(127.0).clamp(min=1e-12)
+                x = torch.round(x / s[:, None]).clamp(-127, 127)
+                scales[c0 : c0 + 64] = s.view(64, rpc)
+            blocks[c0 : c0 + 64] = x.view(64, rpc, d).to(blocks.dtype)
+            del x
+        got = probe_scores(probe, q, blocks, valid, scales)
+        want = probe_scores_plain(probe, q, blocks, valid, scales)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.isneginf(got), pad) and torch.equal(torch.isneginf(want), pad),
+              f"{name}: -inf not exactly on the padding slots")
+        err = (got[~pad] - want[~pad]).abs().max().item()
+        check(err <= PROBE_TOL, f"{name}: max |err| {err} > {PROBE_TOL}")
+        ms, plain_ms = in_turns(
+            torch, lambda: probe_scores(probe, q, blocks, valid, scales),
+            lambda: probe_scores_plain(probe, q, blocks, valid, scales),
+        )
+        log(
+            f"kernel {name} B={b} nprobe={nprobe} clusters={c} rpc={rpc} D={d} "
+            f"{blocks.dtype} blocks ({gib(blocks.numel() * blocks.element_size())}), "
+            f"{int(pad.sum())} padding slots probed: max_abs_err={err:.3g} (tol {PROBE_TOL}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        )
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del blocks, scales, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_attention(torch) -> dict:
@@ -391,6 +533,194 @@ def run_main_path(torch, work: Path) -> dict:
     return launches
 
 
+# -- phase 5: the capacity path ------------------------------------------------
+
+CAPACITY_QUESTIONS = [
+    "How does the IVF tier pick the clusters it probes?",
+    "What does an int8 corpus cost in recall against bfloat16?",
+    "How are spilled rows placed when their best cluster is full?",
+    "Which module answers questions about the chunk hierarchy?",
+]
+
+
+def drive_requests(torch, svc, questions) -> list[float]:
+    """``retrieve()`` each question (synchronised); check reranked sources."""
+    request_ms = []
+    for text in questions:
+        t = time.perf_counter()
+        r = svc.retrieve(text)
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t) * 1e3)
+        check(r.sources and all(0.0 <= s.score <= 1.0 for s in r.sources), f"no reranked sources for {text[:40]!r}")
+        check(r.confidence in ("normal", "low"), f"confidence {r.confidence}")
+    return request_ms
+
+
+def corpus_rows(retriever, rows):
+    """f32 vectors of stacked rows ``rows``, read from the loaded indexes
+    (an array index: a sharded matrix then reads only those rows)."""
+    import numpy as np
+
+    out = np.empty((len(rows), retriever._stacked.shape[-1]), np.float32)
+    mods = retriever._module_of_row[rows]
+    for mi in np.unique(mods):
+        sel = mods == mi
+        matrix = retriever.indexes[retriever.modules[mi]].matrix()[0]
+        out[sel] = matrix[retriever._row_map[rows[sel]].astype(np.int64)]
+    return out
+
+
+def check_self_retrieval(ivf, rows, vecs, nprobe: int, name: str) -> float:
+    from tensortruth_tpu_torch.ops.ivf import ivf_search
+
+    vals, got = ivf_search(ivf, vecs, 1, nprobe=nprobe)
+    rate = float((got[:, 0] == rows).mean())
+    check(rate >= MIN_SELF_RETRIEVAL, f"{name}: self-retrieval {rate} < {MIN_SELF_RETRIEVAL}")
+    log(f"{name}: {len(rows)} corpus rows as queries come back at rank 0 for {rate:.4f} of them "
+        f"(score {vals[:, 0].min():.4f}..{vals[:, 0].max():.4f})")
+    return rate
+
+
+def check_ivf_placement(torch, retriever, dtype, dim: int, name: str) -> None:
+    import numpy as np
+
+    ivf = retriever._ivf
+    check(ivf is not None and retriever._stacked is ivf.blocks, f"{name}: the engine did not take the IVF tier")
+    blocks = ivf.blocks
+    shape = (retriever.ivf_clusters, ivf.rows_per_cluster, dim)
+    check(blocks.is_cuda and blocks.dtype == dtype and tuple(blocks.shape) == shape,
+          f"{name}: blocks {tuple(blocks.shape)} {blocks.dtype} on {blocks.device}")
+    check((ivf.scales is not None) == (dtype == torch.int8), f"{name}: scales do not match the block dtype")
+    placed = ivf.row_map[ivf.row_map >= 0]
+    check(np.array_equal(np.sort(placed), np.arange(CAPACITY_ROWS)), f"{name}: rows not placed exactly once")
+    nbytes = blocks.numel() * blocks.element_size()
+    log(f"{name}: {ivf.n_clusters} clusters x {ivf.rows_per_cluster} rows, {blocks.dtype} blocks "
+        f"{gib(nbytes)}, padding waste {100 * ivf.padding_waste:.2f}%; build seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in retriever.placement_seconds.items()))
+
+
+def run_capacity_path(torch, work: Path) -> dict:
+    """(a) int8 flat tier, (b) IVF over bf16 blocks, (c) IVF over int8 blocks,
+    all at 2,097,152 rows x 1024. Returns the launches counted on each."""
+    import numpy as np
+
+    from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
+    from tensortruth_tpu_torch.ops.ivf import ivf_search, probe_scores
+    from tensortruth_tpu_torch.ops.matmul import mm_f32
+    from tensortruth_tpu_torch.ops.topk import exact_topk, fused_topk_int8
+    from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
+    from tensortruth_tpu_torch.services.rag_service import RAGService
+    from tensortruth_tpu_torch.shared import TensorTruthTPUConfig, VectorIndex
+
+    model_dir = work / "indexes" / "bge-m3"
+    docs_rows = VectorIndex.load(model_dir / "docs").n_rows
+    embedder = ModelManager.get_instance().get_embedder(ModelSpec("BAAI/bge-m3"), device="cuda")
+    t0 = time.perf_counter()
+    synthetic_index(torch, CAPACITY_ROWS - docs_rows, embedder.dim).save(model_dir / "capacity")
+    log(f"capacity index: docs {docs_rows} + {CAPACITY_ROWS - docs_rows} synthetic leaves = {CAPACITY_ROWS} "
+        f"rows, built and written in {time.perf_counter() - t0:.1f} s")
+    svc = RAGService(config=TensorTruthTPUConfig.default(), llm_factory=lambda params: StubLLM())
+    load = dict(indexes_dir=work / "indexes", device="cuda")
+    launches = {}
+
+    # (a) the int8 flat tier: kernel B2
+    t0 = time.perf_counter()
+    engine = svc.load_engine(["docs", "capacity"], {"reranker_top_n": 5, "corpus_dtype": "int8"}, **load)
+    r = engine.retriever
+    log(f"(a) int8 flat tier: loaded in {time.perf_counter() - t0:.1f} s; "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in r.placement_seconds.items()))
+    stacked, scales = r._stacked, r._stacked_scales
+    check(stacked.is_cuda and stacked.dtype == torch.int8 and tuple(stacked.shape) == (CAPACITY_ROWS, embedder.dim)
+          and scales is not None and scales.is_cuda and scales.dtype == torch.float32 and r._ivf is None,
+          f"(a) corpus {tuple(stacked.shape)} {stacked.dtype} on {stacked.device}")
+    check(engine.pipeline is None, "(a) the fused query step is on for an int8 corpus")
+    log(f"(a) corpus {gib(stacked.numel() + scales.numel() * 4)} on the card, "
+        f"{gib(torch.cuda.memory_allocated())} allocated in all")
+    torch.cuda.synchronize()
+    fused_topk_int8.launches = 0
+    request_ms = drive_requests(torch, svc, CAPACITY_QUESTIONS)
+    launches["fused_topk_int8"] = fused_topk_int8.launches
+    check(launches["fused_topk_int8"] > 0, "(a) kernel fused_topk_int8 was not launched on the int8 tier")
+    log("(a) request ms: " + ", ".join(f"{ms:.1f}" for ms in request_ms)
+        + f"; launches {launches['fused_topk_int8']}")
+
+    q = torch.from_numpy(embedder.encode(CAPACITY_QUESTIONS * 2, is_query=True)).to("cuda", torch.bfloat16)
+    _, got = fused_topk_int8(q, stacked, scales, 20, n_actual=CAPACITY_ROWS)
+    deq = mm_f32(q, stacked.to(torch.bfloat16).t()) * scales  # B2's own scores, exactly
+    _, exact = torch.sort(deq, dim=1, descending=True, stable=True)
+    del deq
+    exact_int8 = exact[:, :20]
+    bf16 = torch.empty((CAPACITY_ROWS, embedder.dim), dtype=torch.bfloat16, device="cuda")
+    row = 0
+    for mod in r.modules:
+        for piece in r.indexes[mod].iter_matrix_pieces():
+            bf16[row : row + len(piece)] = torch.from_numpy(np.asarray(piece, np.float32))
+            row += len(piece)
+    _, exact_bf16 = exact_topk(q, bf16, 20)
+    del bf16
+    torch.cuda.empty_cache()
+
+    def recall(a, b):
+        return sum(len(set(x.tolist()) & set(y.tolist())) for x, y in zip(a.cpu(), b.cpu())) / b.numel()
+
+    rec = recall(got, exact_int8)
+    check(rec >= MIN_RECALL, f"(a) B2 top-20 recall {rec} < {MIN_RECALL} against its own exact scores")
+    log(f"(a) B2 top-20 recall: {rec:.4f} against the exact top-20 over the dequantised corpus, "
+        f"{recall(got, exact_bf16):.4f} against the exact top-20 over the bf16 corpus (not asserted)")
+    svc.clear_engines()
+    del engine, r, stacked, scales
+    torch.cuda.empty_cache()
+
+    # (b) the IVF tier over bf16 blocks: kernel B4
+    t0 = time.perf_counter()
+    engine = svc.load_engine(["docs", "capacity"], {"reranker_top_n": 5}, **load)
+    r = engine.retriever
+    log(f"(b) IVF tier (bf16 blocks): loaded in {time.perf_counter() - t0:.1f} s")
+    check_ivf_placement(torch, r, torch.bfloat16, embedder.dim, "(b)")
+    check(engine.pipeline is None, "(b) the fused query step is on for the IVF tier")
+    log(f"(b) {gib(torch.cuda.memory_allocated())} allocated on the card")
+    torch.cuda.synchronize()
+    probe_scores.launches = 0
+    request_ms = drive_requests(torch, svc, CAPACITY_QUESTIONS)
+    launches["ivf_probe"] = probe_scores.launches
+    check(launches["ivf_probe"] > 0, "(b) kernel ivf_probe was not launched on the IVF tier")
+    log("(b) request ms: " + ", ".join(f"{ms:.1f}" for ms in request_ms) + f"; launches {launches['ivf_probe']}")
+    # 32 rows of the synthetic module as queries (the docs rows, embedded
+    # by a random-weight model, lie close together and may outrank each other)
+    synthetic = np.flatnonzero(r._module_of_row == r.modules.index("capacity"))
+    rows = np.random.default_rng(SEED).choice(synthetic, 32, replace=False)
+    vecs = corpus_rows(r, rows)
+    check_self_retrieval(r._ivf, rows, vecs, r.ivf_nprobe, "(b)")
+    _, ivf_rows = ivf_search(r._ivf, q, 20, nprobe=r.ivf_nprobe)
+    log(f"(b) IVF top-20 recall against the exact bf16 top-20: "
+        f"{recall(torch.from_numpy(ivf_rows), exact_bf16):.4f} (not asserted: over random rows it would be "
+        f"about nprobe/clusters; these queries' top rows are docs rows, which the random-weight encoder "
+        f"puts close together)")
+    indexes = r.indexes
+    svc.clear_engines()
+    del engine, r
+    torch.cuda.empty_cache()
+
+    # (c) the IVF tier over int8 blocks: kernel B4's int8 variant
+    t0 = time.perf_counter()
+    r = MultiIndexEngine(indexes, corpus_dtype="int8", ivf_threshold=1_048_576, device="cuda")
+    log(f"(c) IVF tier (int8 blocks): built in {time.perf_counter() - t0:.1f} s")
+    check_ivf_placement(torch, r, torch.int8, embedder.dim, "(c)")
+    log(f"(c) {gib(torch.cuda.memory_allocated())} allocated on the card")
+    torch.cuda.synchronize()
+    probe_scores.launches_int8 = 0
+    t = time.perf_counter()
+    results = r.retrieve_batch(vecs)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t) * 1e3
+    launches["ivf_probe_int8"] = probe_scores.launches_int8
+    check(launches["ivf_probe_int8"] > 0, "(c) kernel ivf_probe_int8 was not launched on the IVF tier")
+    check(len(results) == 32 and all(results), "(c) a query of the batch got no nodes")
+    log(f"(c) retrieve_batch of 32 queries: {batch_ms:.1f} ms; launches {launches['ivf_probe_int8']}")
+    check_self_retrieval(r._ivf, rows, vecs, r.ivf_nprobe, "(c)")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -420,8 +750,18 @@ def main() -> None:
         built = f"compiled in {_build.build_seconds:.1f} s" if _build.build_seconds else "already built"
         log(f"build: {_build.library_path().relative_to(ROOT)} {built}, ready in {time.perf_counter() - t0:.1f} s")
 
-        measured = {"fused_topk": check_fused_topk(torch), "blocked_attention": check_attention(torch)}
+        measured = {
+            "fused_topk": check_fused_topk(torch),
+            "fused_topk_int8": check_fused_topk_int8(torch),
+            "blocked_attention": check_attention(torch),
+            **check_ivf_probe(torch),
+        }
+        t0 = time.perf_counter()
         launches = run_main_path(torch, work)
+        log(f"main path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches |= run_capacity_path(torch, work)
+        log(f"capacity path: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

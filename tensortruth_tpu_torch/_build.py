@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with ``nvcc`` at first use; load via ctypes.
 
 Every ``*.cu`` under ``csrc/`` compiles into ONE shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds, not minutes). The
+C interface (no PyTorch headers, so a build takes seconds, not minutes): one
+``nvcc -c`` per source, all started together, then one link. The
 library lands in ``tensortruth_tpu_torch/_build/<hash>/`` keyed by a hash of
 the sources and the flags, so an edited kernel rebuilds and an unchanged one
 loads from disk. Nothing here runs at import time: ``load()`` is called by
@@ -27,7 +28,7 @@ CSRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -39,12 +40,18 @@ build_seconds: float | None = None
 _vp, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "tt_fused_topk_candidates": [
-        _vp, _vp, _vp, _vp, _vp, _vp,            # q, e, part vals/idx, cand vals/idx
+        _vp, _vp, _vp,                           # q, e, scales (null for a bf16 e)
+        _vp, _vp, _vp, _vp,                      # part vals/idx, cand vals/idx
         _i32, _i32, _i64,                        # b_pad, d, n_actual
         _i32, _i32, _i32, _i32, _i32,            # tile_n, m, n_rot, inner, n_ranges
         _vp,                                     # stream
     ],
-    "tt_fused_topk_resident_blocks": [_i32, ctypes.POINTER(ctypes.c_int)],  # d, out
+    "tt_fused_topk_resident_blocks": [_i32, _i32, ctypes.POINTER(ctypes.c_int)],  # d, quantized, out
+    "tt_ivf_probe_scores": [
+        _vp, _vp, _vp, _vp, _vp, _vp,            # probe, q, blocks, valid, scales (null: bf16), out
+        _i32, _i32, _i32, _i32,                  # b, nprobe, rpc, d
+        _vp,                                     # stream
+    ],
     "tt_blocked_attention": [
         _vp, _vp, _vp, _vp, _vp,                 # q, k, v, mask, out
         _i32, _i32, _i32,                        # b, nh, s
@@ -78,16 +85,31 @@ def library_path() -> Path:
 def _compile(target: Path) -> None:
     global build_seconds
     target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    tag = f"{os.getpid()}.tmp"
+    srcs = [src for src in _sources() if src.suffix == ".cu"]
+    objs = [target.parent / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = target.with_suffix(f".{tag}.so")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        compiles = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                 for cmd in compiles]
+        failed = []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        tmp.replace(target)  # atomic: a concurrent build sees old-or-new
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    tmp.replace(target)  # atomic: a concurrent build sees old-or-new
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
 
 

@@ -1,4 +1,5 @@
-"""Dense top-k over the stacked corpus: exact, and fused matmul + bucketed top-k.
+"""Dense top-k over the stacked corpus: exact, and fused matmul + bucketed top-k
+over a bf16 corpus (kernel B1) or an int8 corpus with per-row scales (B2).
 
 Port of ``tensortruth_tpu/ops/topk.py``. ``fused_topk`` keeps the reference's
 candidate semantics exactly: per ``tile_n`` row tile, ``tile_n // m``
@@ -7,9 +8,13 @@ strided-bucket maxima max-merged into a ``(B, c_out)`` accumulator where tile
 tile winning ties, then an exact top-k over the candidates. Expected loss of
 a true top-k item is about k^2 / (2 c_out).
 
+``fused_topk_int8`` is the same over ``quantize_corpus`` output: each f32
+score is multiplied by its row's f32 scale after the dot, then bucketed.
+
 Dispatch: a CUDA tensor goes to the hand-written kernel
-(``csrc/fused_topk.cu``) or raises; only CPU tensors take the plain PyTorch
-version, :func:`fused_candidates_plain`.
+(``csrc/fused_topk.cu``, one template for both) or raises; only CPU tensors
+take the plain PyTorch versions, :func:`fused_candidates_plain` and
+:func:`fused_candidates_int8_plain`.
 
 Ties: ``lax.top_k`` puts the lower index first and ``torch.topk`` promises no
 order, so every final selection here is a stable descending sort.
@@ -82,7 +87,25 @@ def fused_candidates_plain(
     q: torch.Tensor, emb: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel B1: the (B, c_out) candidate values
-    and global row indices, bit-for-bit the reference's bucketing.
+    and global row indices, bit-for-bit the reference's bucketing."""
+    return _bucket_candidates(mm_f32(q, emb.t()), tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+
+
+def fused_candidates_int8_plain(
+    q: torch.Tensor, emb_q: torch.Tensor, scales: torch.Tensor, *, tile_n: int, m: int, c_out: int,
+    n_actual: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B2: the int8 rows converted to the
+    query's dtype (exact), the f32 dot, THEN the f32 row scale, as the
+    reference orders them; then B1's bucketing."""
+    scores = mm_f32(q, emb_q.to(q.dtype).t()) * scales.to(torch.float32)
+    return _bucket_candidates(scores, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+
+
+def _bucket_candidates(
+    scores: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, N) f32 scores -> (B, c_out) candidate values and global rows.
 
     Global row of (tile step t, block r, segment i, slot j) is
     ``((t * n_rot + r) * m + i) * c + j``. Each (block, slot) keeps the
@@ -90,10 +113,9 @@ def fused_candidates_plain(
     reference's strict ``>`` over segments, then over tiles — taken here by
     an explicit smallest-position rule, not by ``argmax``'s tie behaviour.
     """
-    b, n = q.shape[0], emb.shape[0]
+    b, n = scores.shape
     c, c_out, n_rot, inner, _ = _geometry(n, n_actual, tile_n, m, c_out)
     rows = inner * n_rot * tile_n
-    scores = mm_f32(q, emb.t())
     scores = torch.nn.functional.pad(scores, (0, rows - n), value=NEG_INF)
     col = torch.arange(rows, device=scores.device)
     scores = scores.masked_fill(col >= n_actual, NEG_INF)
@@ -114,19 +136,67 @@ def fused_candidates_plain(
 _QB = 32  # queries per kernel block (csrc/fused_topk.cu kQB)
 _SJ = 64  # candidate slots per kernel step (kSJ)
 _MAX_D = 2048  # the block's queries are staged in shared memory
-_resident: dict[tuple[torch.device, int], int] = {}
+_resident: dict[tuple[torch.device, int, bool], int] = {}
 
 
-def _resident_blocks(device: torch.device, d: int) -> int:
+def _resident_blocks(device: torch.device, d: int, quantized: bool) -> int:
     """Partial-pass blocks ``device`` runs at once (occupancy x SMs) at
-    dimension ``d``, cached."""
-    if (device, d) not in _resident:
+    dimension ``d`` for a bf16 or int8 corpus, cached."""
+    key = (device, d, quantized)
+    if key not in _resident:
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = _build.load().tt_fused_topk_resident_blocks(d, ctypes.byref(out))
+            err = _build.load().tt_fused_topk_resident_blocks(d, int(quantized), ctypes.byref(out))
         _build.check(err, "fused_topk occupancy")
-        _resident[(device, d)] = out.value
-    return _resident[(device, d)]
+        _resident[key] = out.value
+    return _resident[key]
+
+
+def _launch_candidates(
+    q: torch.Tensor, emb: torch.Tensor, scales: torch.Tensor | None, *, tile_n: int, m: int, c_out: int,
+    n_actual: int, name: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Checks shared by B1 and B2, then one launch of csrc/fused_topk.cu."""
+    if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1]:
+        raise ValueError(f"{name} shapes {tuple(q.shape)} x {tuple(emb.shape)}")
+    if not (q.is_contiguous() and emb.is_contiguous()):
+        raise ValueError(f"{name} kernel needs contiguous q and emb")
+    b, d = q.shape
+    n = emb.shape[0]
+    if d % 16 != 0 or d > _MAX_D:
+        raise ValueError(f"{name} kernel needs D % 16 == 0 and D <= {_MAX_D}, got {d}")
+    tensors = (q, emb) if scales is None else (q, emb, scales)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{name} kernel needs all inputs on one CUDA device, got {[str(t.device) for t in tensors]}")
+    c, c_out, n_rot, inner, num_tiles = _geometry(n, n_actual, tile_n, m, c_out)
+    if c % _SJ != 0:
+        raise ValueError(f"{name} kernel needs tile_n//m % {_SJ} == 0, got {c}")
+    b_pad = -(-b // _QB) * _QB
+    if b_pad != b:
+        q = torch.nn.functional.pad(q, (0, 0, 0, b_pad - b))
+    if num_tiles * tile_n != n:
+        # Copies the corpus; the engine pre-pads once at placement instead.
+        emb = torch.nn.functional.pad(emb, (0, 0, 0, num_tiles * tile_n - n))
+        if scales is not None:
+            scales = torch.nn.functional.pad(scales, (0, num_tiles * tile_n - n))
+    if emb.data_ptr() % 32 or q.data_ptr() % 32:
+        raise ValueError(f"{name} kernel needs 32-byte aligned q and emb")
+
+    # One wave of partial-pass blocks: as many tile ranges as fit at once.
+    blocks_per_range = (c // _SJ) * n_rot * (b_pad // _QB)
+    resident = _resident_blocks(q.device, d, scales is not None)
+    n_ranges = max(1, min(inner, resident // blocks_per_range))
+    part_vals = torch.empty((n_ranges, b_pad, c_out), dtype=torch.float32, device=q.device)
+    part_idx = torch.empty((n_ranges, b_pad, c_out), dtype=torch.int32, device=q.device)
+    cand_vals = torch.empty((b_pad, c_out), dtype=torch.float32, device=q.device)
+    cand_idx = torch.empty((b_pad, c_out), dtype=torch.int32, device=q.device)
+    err = _build.load().tt_fused_topk_candidates(
+        q.data_ptr(), emb.data_ptr(), None if scales is None else scales.data_ptr(),
+        part_vals.data_ptr(), part_idx.data_ptr(), cand_vals.data_ptr(), cand_idx.data_ptr(),
+        b_pad, d, n_actual, tile_n, m, n_rot, inner, n_ranges, _build.stream_of(q),
+    )
+    _build.check(err, name)
+    return cand_vals[:b], cand_idx[:b]
 
 
 def fused_candidates_cuda(
@@ -136,43 +206,30 @@ def fused_candidates_cuda(
     Raises on any input the kernel does not take."""
     if q.dtype != torch.bfloat16 or emb.dtype != torch.bfloat16:
         raise TypeError(f"fused_topk kernel takes bfloat16 q and emb, got {q.dtype}, {emb.dtype}")
-    if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1]:
-        raise ValueError(f"fused_topk shapes {tuple(q.shape)} x {tuple(emb.shape)}")
-    if not (q.is_contiguous() and emb.is_contiguous()):
-        raise ValueError("fused_topk kernel needs contiguous q and emb")
-    b, d = q.shape
-    n = emb.shape[0]
-    if d % 16 != 0 or d > _MAX_D:
-        raise ValueError(f"fused_topk kernel needs D % 16 == 0 and D <= {_MAX_D}, got {d}")
-    if not (q.is_cuda and emb.is_cuda and q.device == emb.device):
-        raise ValueError(f"fused_topk kernel needs q and emb on one CUDA device, got {q.device}, {emb.device}")
-    c, c_out, n_rot, inner, num_tiles = _geometry(n, n_actual, tile_n, m, c_out)
-    if c % _SJ != 0:
-        raise ValueError(f"fused_topk kernel needs tile_n//m % {_SJ} == 0, got {c}")
-    b_pad = -(-b // _QB) * _QB
-    if b_pad != b:
-        q = torch.nn.functional.pad(q, (0, 0, 0, b_pad - b))
-    if num_tiles * tile_n != n:
-        # Copies the corpus; the engine pre-pads once at placement instead.
-        emb = torch.nn.functional.pad(emb, (0, 0, 0, num_tiles * tile_n - n))
-    if emb.data_ptr() % 32 or q.data_ptr() % 32:
-        raise ValueError("fused_topk kernel needs 32-byte aligned q and emb")
-
-    # One wave of partial-pass blocks: as many tile ranges as fit at once.
-    blocks_per_range = (c // _SJ) * n_rot * (b_pad // _QB)
-    n_ranges = max(1, min(inner, _resident_blocks(q.device, d) // blocks_per_range))
-    part_vals = torch.empty((n_ranges, b_pad, c_out), dtype=torch.float32, device=q.device)
-    part_idx = torch.empty((n_ranges, b_pad, c_out), dtype=torch.int32, device=q.device)
-    cand_vals = torch.empty((b_pad, c_out), dtype=torch.float32, device=q.device)
-    cand_idx = torch.empty((b_pad, c_out), dtype=torch.int32, device=q.device)
-    err = _build.load().tt_fused_topk_candidates(
-        q.data_ptr(), emb.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(),
-        cand_vals.data_ptr(), cand_idx.data_ptr(),
-        b_pad, d, n_actual, tile_n, m, n_rot, inner, n_ranges, _build.stream_of(q),
-    )
-    _build.check(err, "fused_topk")
+    cand = _launch_candidates(q, emb, None, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, name="fused_topk")
     fused_topk.launches += 1
-    return cand_vals[:b], cand_idx[:b]
+    return cand
+
+
+def fused_candidates_int8_cuda(
+    q: torch.Tensor, emb_q: torch.Tensor, scales: torch.Tensor, *, tile_n: int, m: int, c_out: int,
+    n_actual: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B2 on the card: same contract as
+    :func:`fused_candidates_int8_plain`. Raises on any input the kernel does
+    not take (a bf16 query; int8 rows; f32 scales, one per row)."""
+    if q.dtype != torch.bfloat16 or emb_q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(
+            f"fused_topk_int8 kernel takes bfloat16 q, int8 emb and float32 scales, "
+            f"got {q.dtype}, {emb_q.dtype}, {scales.dtype}"
+        )
+    if scales.shape != (emb_q.shape[0],) or not scales.is_contiguous():
+        raise ValueError(f"fused_topk_int8 kernel needs contiguous scales of shape ({emb_q.shape[0]},)")
+    cand = _launch_candidates(
+        q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, name="fused_topk_int8"
+    )
+    fused_topk_int8.launches += 1
+    return cand
 
 
 def fused_topk(
@@ -222,6 +279,48 @@ def select_topk(cand_vals: torch.Tensor, cand_idx: torch.Tensor, k: int, n_actua
     return pad_topk(vals, torch.gather(cand_idx, 1, pos), k)
 
 
+def fused_topk_int8(
+    q: torch.Tensor,
+    emb_q: torch.Tensor,
+    scales: torch.Tensor,
+    k: int,
+    m: int = 1,
+    tile_n: int = 2048,
+    c_out: int = 2048,
+    n_actual: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_topk` over an int8 corpus + per-row f32 scales (see
+    :func:`quantize_corpus`). Same returns as :func:`exact_topk`; the query
+    stays bf16. There is no exact cut-over: small corpora take the fused
+    path too. On CUDA tensors this launches kernel B2; on CPU tensors it
+    runs the plain version."""
+    n_actual = emb_q.shape[0] if n_actual is None else n_actual
+    on_card = q.is_cuda or emb_q.is_cuda or scales.is_cuda
+    candidates = fused_candidates_int8_cuda if on_card else fused_candidates_int8_plain
+    cand = candidates(q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    return select_topk(*cand, k, n_actual)
+
+
+fused_topk_int8.launches = 0  # kernel launches (CUDA path only)
+
+
+def fused_topk_int8_plain(
+    q: torch.Tensor,
+    emb_q: torch.Tensor,
+    scales: torch.Tensor,
+    k: int,
+    m: int = 1,
+    tile_n: int = 2048,
+    c_out: int = 2048,
+    n_actual: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_topk_int8` through the plain version on any device (what
+    the kernel is held against)."""
+    n_actual = emb_q.shape[0] if n_actual is None else n_actual
+    cand = fused_candidates_int8_plain(q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    return select_topk(*cand, k, n_actual)
+
+
 def topk_search(
     q: torch.Tensor,
     emb: torch.Tensor,
@@ -251,3 +350,32 @@ def pad_corpus_for_fused(emb: np.ndarray, tile_n: int = 2048) -> tuple[np.ndarra
         return emb, n
     pad = np.zeros((n_pad - n, emb.shape[1]), dtype=emb.dtype)
     return np.concatenate([emb, pad], axis=0), n
+
+
+def quantize_corpus(emb) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-row int8 quantization: (emb_q (N, D) int8, scales (N,)
+    f32), the reference's arithmetic exactly."""
+    emb = np.asarray(emb, dtype=np.float32)
+    scales = np.abs(emb).max(axis=1) / 127.0
+    scales = np.maximum(scales, 1e-12)
+    emb_q = np.clip(np.rint(emb / scales[:, None]), -127, 127).astype(np.int8)
+    return emb_q, scales.astype(np.float32)
+
+
+def quantize_corpus_streaming(pieces, n_rows: int, dim: int, tile_n: int = 2048):
+    """:func:`quantize_corpus` + :func:`pad_corpus_for_fused` over
+    row-contiguous f32 pieces (mmap shards), never holding the f32 corpus.
+    Padding rows are 0 with scale 0. Returns (emb_q (N_pad, D) int8,
+    scales (N_pad,) f32, n_actual)."""
+    n_pad = -(-n_rows // tile_n) * tile_n
+    emb_q = np.zeros((n_pad, dim), np.int8)
+    scales = np.zeros(n_pad, np.float32)
+    row = 0
+    for piece in pieces:
+        q, s = quantize_corpus(piece)
+        emb_q[row : row + q.shape[0]] = q
+        scales[row : row + q.shape[0]] = s
+        row += q.shape[0]
+    if row != n_rows:
+        raise ValueError(f"pieces supplied {row} rows, expected {n_rows}")
+    return emb_q, scales, n_rows

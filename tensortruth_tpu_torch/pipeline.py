@@ -52,10 +52,17 @@ class QueryPipeline:
         self.engine = engine
 
     def applicable(self) -> bool:
-        """The fused step needs the flat single-device tier with a corpus on
-        the embedder's device."""
+        """The fused step needs the flat single-device bf16/f32 tier (no
+        mesh, no IVF index, no int8 scales) with a corpus on the embedder's
+        device; the other tiers embed, then search through the engine."""
         eng = self.engine
-        return eng._stacked is not None and eng._stacked.device == self.embedder.device
+        return (
+            eng.mesh is None
+            and eng._ivf is None
+            and eng._stacked_scales is None
+            and eng._stacked is not None
+            and eng._stacked.device == self.embedder.device
+        )
 
     def retrieve_batch(self, texts: Sequence[str]):
         """texts -> per-query merged/balanced RetrievedNodes."""

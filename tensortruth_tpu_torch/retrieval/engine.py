@@ -1,25 +1,35 @@
 """MultiIndexEngine: every loaded module's leaf matrix stacked into one
 device matrix, searched by one top-k launch per query batch.
 
-Port of ``tensortruth_tpu/retrieval/engine.py``, flat single-device tier:
+Port of ``tensortruth_tpu/retrieval/engine.py`` for one device. Every tier
+streams ``iter_matrix_pieces`` (the f32 stack is never materialised):
 
-* ``_restack`` streams ``iter_matrix_pieces`` into one preallocated host
-  tensor in the corpus dtype, padded to 2048-row tiles, then makes ONE copy
-  to the device (the f32 stack is never materialised);
-* per-module quota (``similarity_top_k`` per index) over ``top_k x
-  n_modules`` global candidates, auto-merge per module, then
-  ``top_k_per_index`` balancing;
-* LRU cache of 128 query texts.
+* flat bf16 / f32: one preallocated host tensor in the corpus dtype, padded
+  to 2048-row tiles, then ONE copy to the device; searched by
+  ``topk_search`` (kernel B1 past 4096 rows when fused);
+* flat int8 (``corpus_dtype="int8"`` with ``use_fused``): per-piece
+  ``quantize_corpus_streaming`` into a tile-padded int8 matrix + f32 row
+  scales; searched by ``fused_topk_int8`` (kernel B2) at any size. Without
+  ``use_fused`` it warns and falls back to bf16, as the reference does;
+* IVF, at ``ivf_threshold`` rows or more (twice that for int8): a
+  cluster-major ``IVFIndex`` of bf16 or int8 blocks, searched by
+  ``ivf_search`` (kernel B4).
+
+The query is never cast to int8: it scores in bf16 against an int8 corpus.
+Then: per-module quota (``similarity_top_k`` per index) over ``top_k x
+n_modules`` global candidates, auto-merge per module, ``top_k_per_index``
+balancing, and an LRU cache of 128 query texts.
 
 ``use_fused`` defaults to whether the engine's device is CUDA (the reference
-defaults to whether it runs on a TPU). The IVF tier, the int8 corpus and a
-multi-device mesh are not ported yet: asking for them raises.
+defaults to whether it runs on a TPU). The tier thresholds, cluster and probe
+counts are the reference's, sized for a TPU. A multi-device mesh is not
+ported yet: asking for one raises.
 """
 
 from __future__ import annotations
 
 import logging
-import warnings
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 
@@ -28,13 +38,13 @@ import torch
 
 from tensortruth_tpu.index.nodes import Node
 from tensortruth_tpu.index.store import VectorIndex
-from tensortruth_tpu_torch.ops.topk import topk_search
+from tensortruth_tpu_torch.ops.ivf import IVFIndex, build_ivf, host_tensor, ivf_search
+from tensortruth_tpu_torch.ops.topk import fused_topk_int8, quantize_corpus_streaming, topk_search
 from tensortruth_tpu_torch.retrieval.automerge import auto_merge
 
 logger = logging.getLogger(__name__)
 
 TILE_ROWS = 2048  # corpus padding unit = fused_topk's tile_n
-_CORPUS_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclass
@@ -47,8 +57,21 @@ class RetrievedNode:
     source_index: int
 
     @property
+    def text(self) -> str:
+        return self.node.text
+
+    @property
     def node_id(self) -> str:
         return self.node.node_id
+
+    def to_dict(self) -> dict:
+        return {
+            "node_id": self.node.node_id,
+            "module": self.module,
+            "score": self.score,
+            "text": self.node.text,
+            "metadata": self.node.metadata,
+        }
 
 
 class MultiIndexEngine:
@@ -63,15 +86,14 @@ class MultiIndexEngine:
         device="cuda",
         use_fused: bool | None = None,
         ivf_threshold: int = 2_000_000,
+        ivf_clusters: int = 1024,
+        ivf_nprobe: int = 32,
         corpus_dtype: str = "bfloat16",
         mesh=None,
     ):
         if mesh is not None:
             raise NotImplementedError("multi-device engine is not ported yet (ROADMAP A15)")
-        if corpus_dtype not in _CORPUS_DTYPES:
-            raise NotImplementedError(
-                f"corpus_dtype={corpus_dtype!r} is not ported yet (int8 tier: ROADMAP A12)"
-            )
+        self.mesh = mesh
         self.modules = list(indexes.keys())
         self.indexes = indexes
         self.similarity_top_k = similarity_top_k
@@ -82,9 +104,14 @@ class MultiIndexEngine:
         self.device = torch.device(device)
         self.use_fused = use_fused if use_fused is not None else self.device.type == "cuda"
         self.ivf_threshold = ivf_threshold
+        self.ivf_clusters = ivf_clusters
+        self.ivf_nprobe = ivf_nprobe
         self.corpus_dtype = corpus_dtype
         self._cache: OrderedDict[str, list[RetrievedNode]] = OrderedDict()
-        self._stacked: torch.Tensor | None = None
+        self._stacked: torch.Tensor | None = None  # flat corpus, or the IVF blocks
+        self._stacked_scales: torch.Tensor | None = None  # f32 row scales of an int8 flat corpus
+        self._ivf: IVFIndex | None = None
+        self.placement_seconds: dict[str, float] = {}  # host clock per step of the last _restack
         self._row_map: np.ndarray | None = None  # global row -> physical row
         self._module_of_row: np.ndarray | None = None
         self._n_actual = 0
@@ -103,31 +130,67 @@ class MultiIndexEngine:
             active.append(mod)
             dim = m.shape[1]
         self._cache.clear()
+        self._ivf, self._stacked_scales, self.placement_seconds = None, None, {}
         if not active:
             self._stacked, self._n_actual = None, 0
             return
         self._module_of_row = np.concatenate(mods)
         self._row_map = np.concatenate(rows)
         self._n_actual = int(self._module_of_row.shape[0])
-        if self._n_actual >= self.ivf_threshold:
-            raise NotImplementedError(
-                f"{self._n_actual} rows reach the IVF tier (>= {self.ivf_threshold}), "
-                "which is not ported yet (ROADMAP A13)"
+
+        def emb_pieces():
+            """Row-contiguous f32 pieces in stack order (mmap shards as is)."""
+            for mod in active:
+                yield from self.indexes[mod].iter_matrix_pieces()
+
+        # int8 halves the bytes per row, so the flat scan holds to twice the
+        # rows before the IVF tier takes over (the reference's factor).
+        dtype_factor = 2 if self.corpus_dtype == "int8" else 1
+        t0 = time.perf_counter()
+        if self._n_actual >= self.ivf_threshold * dtype_factor:
+            self._ivf = build_ivf(
+                emb_pieces,
+                n_clusters=self.ivf_clusters,
+                block_dtype=torch.int8 if self.corpus_dtype == "int8" else torch.bfloat16,
+                n_rows=self._n_actual,
+                dim=dim,
+                device=self.device,
+            )
+            self._stacked = self._ivf.blocks
+            self.placement_seconds = dict(self._ivf.build_seconds)
+            return
+        if self.corpus_dtype == "int8" and self.use_fused:
+            emb_q, scales, _ = quantize_corpus_streaming(emb_pieces(), self._n_actual, dim, tile_n=TILE_ROWS)
+            self.placement_seconds["quantize"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self._stacked = torch.from_numpy(emb_q).to(self.device)
+            self._stacked_scales = torch.from_numpy(scales).to(self.device)
+            self.placement_seconds["to_device"] = time.perf_counter() - t0
+            return
+        dtype = torch.float32 if self.corpus_dtype == "float32" else torch.bfloat16
+        if self.corpus_dtype == "int8":
+            # The int8 flat scan needs the fused kernel; the exact path falls
+            # back to bf16. Say so instead of silently doubling device memory.
+            logger.warning(
+                "corpus_dtype=int8 requested but use_fused=False on a single device: "
+                "falling back to bfloat16 corpus (2x device memory)"
             )
         n_pad = -(-self._n_actual // TILE_ROWS) * TILE_ROWS
-        host = torch.zeros((n_pad, dim), dtype=_CORPUS_DTYPES[self.corpus_dtype])
+        host = torch.zeros((n_pad, dim), dtype=dtype)
         row = 0
-        with warnings.catch_warnings():
-            # Pieces may be read-only mmaps; they are only read from here.
-            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-            for mod in active:
-                for piece in self.indexes[mod].iter_matrix_pieces():
-                    n = piece.shape[0]
-                    host[row : row + n] = torch.from_numpy(np.asarray(piece, dtype=np.float32))
-                    row += n
+        for piece in emb_pieces():
+            host[row : row + piece.shape[0]] = host_tensor(piece)
+            row += piece.shape[0]
         if row != self._n_actual:
             raise RuntimeError(f"matrix pieces supplied {row} rows, stack expects {self._n_actual}")
+        self.placement_seconds["stack"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         self._stacked = host.to(self.device)
+        self.placement_seconds["to_device"] = time.perf_counter() - t0
+
+    def refresh(self) -> None:
+        """Re-stack after index mutations (add/remove documents)."""
+        self._restack()
 
     @property
     def n_chunks(self) -> int:
@@ -153,11 +216,20 @@ class MultiIndexEngine:
         if self._stacked is None or self._n_actual == 0:
             return [[] for _ in range(query_embs.shape[0])]
         k = min(self.similarity_top_k * max(1, len(self.modules)), self._n_actual)
-        q = torch.from_numpy(np.asarray(query_embs, dtype=np.float32)).to(self.device, self._stacked.dtype)
+        # Never cast the query to int8: normalised components are all below
+        # 1 in magnitude and would truncate to 0. An int8 corpus (flat or IVF
+        # blocks) is scored by a bf16 query.
+        int8 = self._stacked_scales is not None or self._stacked.dtype == torch.int8
+        q_dtype = torch.bfloat16 if int8 else self._stacked.dtype
+        q = torch.from_numpy(np.asarray(query_embs, dtype=np.float32)).to(self.device, q_dtype)
+        if self._ivf is not None:
+            vals, idx = ivf_search(self._ivf, q, k, nprobe=self.ivf_nprobe)
+            return [self._postprocess(vals[i], idx[i]) for i in range(vals.shape[0])]
         with torch.inference_mode():
-            vals, idx = topk_search(
-                q, self._stacked, k, exact=not self.use_fused, n_actual=self._n_actual
-            )
+            if self._stacked_scales is not None:
+                vals, idx = fused_topk_int8(q, self._stacked, self._stacked_scales, k, n_actual=self._n_actual)
+            else:
+                vals, idx = topk_search(q, self._stacked, k, exact=not self.use_fused, n_actual=self._n_actual)
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         return [self._postprocess(vals[i], idx[i]) for i in range(vals.shape[0])]
 

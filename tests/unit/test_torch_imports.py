@@ -3,9 +3,9 @@
 * Importing every module of ``tensortruth_tpu_torch`` (in a fresh
   interpreter) leaves ``jax`` and ``triton`` out of ``sys.modules`` and
   builds nothing; ``chip_smoke.py`` imports only the port.
-* The CUDA-only wrappers raise on inputs their kernels do not take instead of
-  falling back; these checks run on the CPU because they come before the
-  device check.
+* The CUDA-only wrappers (B1, B2, B3, B4) raise on inputs their kernels do
+  not take instead of falling back; these checks run on the CPU because they
+  come before the device check.
 """
 
 import ast
@@ -17,7 +17,7 @@ import sys
 import pytest
 import torch
 
-from tensortruth_tpu_torch.ops import attention, topk
+from tensortruth_tpu_torch.ops import attention, ivf, topk
 
 torch.set_num_threads(1)
 
@@ -36,7 +36,7 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                          cwd=PKG.parent, check=True)
     n, has_jax, has_triton = out.stdout.split()
-    assert int(n) >= 15
+    assert int(n) >= 16
     assert (has_jax, has_triton) == ("False", "False"), out.stdout
 
 
@@ -63,7 +63,7 @@ def test_package_sources_avoid_forbidden_shortcuts():
         assert "scaled_dot_product_attention" not in src, path
         assert "torch.compile" not in src, path
         assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path
-    for path in (PKG / "ops" / "topk.py", PKG / "ops" / "attention.py"):
+    for path in (PKG / "ops" / "topk.py", PKG / "ops" / "attention.py", PKG / "ops" / "ivf.py"):
         assert "except" not in path.read_text(), path
 
 
@@ -88,6 +88,51 @@ def test_fused_topk_kernel_wrapper_refuses(q, emb, err):
         topk.fused_candidates_cuda(q, emb, tile_n=2048, m=1, c_out=2048, n_actual=emb.shape[0])
 
 
+@pytest.mark.parametrize(
+    "q,emb,scales,err",
+    [
+        (_q(), _q(n=2048), torch.ones(2048), TypeError),  # bf16 rows
+        (_q(torch.float32), torch.zeros((2048, 32), dtype=torch.int8), torch.ones(2048), TypeError),
+        (_q(), torch.zeros((2048, 32), dtype=torch.int8), torch.ones(2048, dtype=torch.float64), TypeError),
+        (_q(), torch.zeros((2048, 32), dtype=torch.int8), torch.ones(2047), ValueError),  # one scale per row
+        (_q(), torch.zeros((2048, 64), dtype=torch.int8)[:, ::2], torch.ones(2048), ValueError),
+        (_q(d=24), torch.zeros((2048, 24), dtype=torch.int8), torch.ones(2048), ValueError),  # D % 16
+        (_q(), torch.zeros((2048, 32), dtype=torch.int8), torch.ones(2048), ValueError),  # CPU tensors
+    ],
+)
+def test_fused_topk_int8_kernel_wrapper_refuses(q, emb, scales, err):
+    with pytest.raises(err):
+        topk.fused_candidates_int8_cuda(q, emb, scales, tile_n=2048, m=1, c_out=2048, n_actual=emb.shape[0])
+
+
+def _probe_args(blocks_dtype=torch.bfloat16, d=32, q_dtype=torch.bfloat16, scales=False, probe_dtype=torch.int32):
+    return dict(
+        probe=torch.zeros((2, 3), dtype=probe_dtype),
+        q=torch.zeros((2, d), dtype=q_dtype),
+        blocks=torch.zeros((4, 128, d), dtype=blocks_dtype),
+        valid=torch.ones((4, 128), dtype=torch.int32),
+        scales=torch.ones((4, 128)) if scales else None,
+    )
+
+
+@pytest.mark.parametrize(
+    "args,err",
+    [
+        (_probe_args(torch.float32), TypeError),  # f32 blocks
+        (_probe_args(torch.int8), TypeError),  # int8 blocks without scales
+        (_probe_args(scales=True), TypeError),  # bf16 blocks with scales
+        (_probe_args(q_dtype=torch.float32), TypeError),
+        (_probe_args(probe_dtype=torch.int64), TypeError),
+        (_probe_args(d=24), ValueError),  # D % 16
+        (_probe_args(), ValueError),  # CPU tensors
+        (_probe_args(torch.int8, scales=True), ValueError),
+    ],
+)
+def test_probe_kernel_wrapper_refuses(args, err):
+    with pytest.raises(err):
+        ivf.probe_scores_cuda(**args)
+
+
 def _qkv(dtype=torch.bfloat16, s=256, dh=64):
     return torch.zeros((2, 2, s, dh), dtype=dtype)
 
@@ -108,12 +153,21 @@ def test_attention_kernel_wrapper_refuses(q, k, mask, err):
         attention.blocked_attention_cuda(q, k, k, mask)
 
 
+def _counts():
+    return (topk.fused_topk.launches, topk.fused_topk_int8.launches, attention.blocked_attention.launches,
+            ivf.probe_scores.launches, ivf.probe_scores.launches_int8)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
-    before = (topk.fused_topk.launches, attention.blocked_attention.launches)
+    before = _counts()
     topk.fused_topk(torch.randn(3, 16), torch.randn(5000, 16), 5)
+    topk.fused_topk_int8(torch.randn(3, 16), torch.ones((5000, 16), dtype=torch.int8), torch.ones(5000), 5)
     q = torch.randn(1, 1, 256, 16)
     attention.blocked_attention(q, q, q, torch.ones((1, 256), dtype=torch.int32))
-    assert (topk.fused_topk.launches, attention.blocked_attention.launches) == before
+    for int8 in (False, True):
+        args = _probe_args(torch.int8 if int8 else torch.bfloat16, scales=int8)
+        ivf.probe_scores(**args)
+    assert _counts() == before
 
 
 def test_engine_default_device_is_cuda_and_never_moves_to_cpu():

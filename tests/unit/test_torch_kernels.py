@@ -5,10 +5,13 @@ elsewhere. Run them on a GPU machine with
 
     python -m pytest tests/unit/test_torch_kernels.py -m requires_cuda -q
 
-Tolerances: kernel B1 (fused top-k) and its plain version both sum exact
-bf16 products in float32, so values agree within 1e-4 and indices may differ
-only where the two scores at that rank are within it; integer-valued inputs
-make every score exact and then the results must be identical. Kernel B3
+Tolerances: kernels B1 and B2 (fused top-k over bf16 / int8 rows) and their
+plain versions both sum exact bf16 products in float32 (B2 then applies one
+f32 row scale), so values agree within 1e-4 and indices may differ only where
+the two scores at that rank are within it; integer-valued inputs make every
+score exact and then the results must be identical. Kernel B4 (IVF probe
+scores, bf16 and int8 blocks) agrees within 1e-4 with -inf exactly on the
+padding slots. Kernel B3
 (attention) agrees within 2e-2 absolute on N(0, 1) inputs: both round the
 output to bf16, and they round the softmax weights at different points.
 """
@@ -17,7 +20,13 @@ import pytest
 import torch
 
 from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention
-from tensortruth_tpu_torch.ops.topk import fused_topk, fused_topk_plain
+from tensortruth_tpu_torch.ops.ivf import probe_scores, probe_scores_plain
+from tensortruth_tpu_torch.ops.topk import (
+    fused_topk,
+    fused_topk_int8,
+    fused_topk_int8_plain,
+    fused_topk_plain,
+)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -73,6 +82,77 @@ def test_fused_topk_counts_launches(gen):
     before = fused_topk.launches
     fused_topk(_unit(gen, 2, 64), _unit(gen, 4096, 64), 5)
     assert fused_topk.launches == before + 1
+
+
+def _int8_rows(gen, n, d):
+    """quantize_corpus of unit rows, on the card: int8 rows + f32 scales."""
+    x = _unit(gen, n, d).float()
+    scales = x.abs().amax(dim=1) / 127.0
+    return torch.round(x / scales[:, None]).clamp(-127, 127).to(torch.int8), scales
+
+
+def _assert_topk_close(got, want):
+    (vals, idx), (pvals, pidx) = got, want
+    finite = torch.isfinite(pvals)
+    assert torch.equal(finite, torch.isfinite(vals))
+    assert torch.equal(idx[~finite], pidx[~finite])
+    diff = (vals[finite] - pvals[finite]).abs()
+    assert diff.max().item() <= TOPK_TOL
+    assert not ((idx[finite] != pidx[finite]) & (diff > TOPK_TOL)).any()
+
+
+@pytest.mark.parametrize(
+    "b,n,d,k,m,c_out,n_actual",
+    [
+        (1, 700, 64, 10, 1, 2048, 650),          # one tile, below the bf16 tier's exact cut-over
+        (5, 70_000, 128, 100, 1, 2048, 69_001),  # ragged n_actual inside a tile
+        (33, 20_000, 1024, 50, 2, 2048, 20_000),  # m = 2, two query blocks
+        (8, 40_960, 256, 30, 1, 8192, 40_960),   # n_rot = 4
+        (3, 3000, 64, 500, 1, 2048, 300),        # k > n_actual: -inf / -1 padding
+    ],
+)
+def test_fused_topk_int8_kernel_matches_plain(gen, b, n, d, k, m, c_out, n_actual):
+    q = _unit(gen, b, d)
+    e_q, scales = _int8_rows(gen, n, d)
+    got = fused_topk_int8(q, e_q, scales, k, m=m, c_out=c_out, n_actual=n_actual)
+    want = fused_topk_int8_plain(q, e_q, scales, k, m=m, c_out=c_out, n_actual=n_actual)
+    torch.cuda.synchronize()
+    _assert_topk_close(got, want)
+
+
+def test_fused_topk_int8_kernel_planted_ties_exact(gen):
+    q = torch.randint(-2, 3, (7, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    e_q = torch.randint(-2, 3, (3000, 64), generator=gen, device="cuda").to(torch.int8).repeat(3, 1)
+    scales = torch.ones(e_q.shape[0], device="cuda")
+    before = fused_topk_int8.launches
+    for m in (1, 2):
+        got = fused_topk_int8(q, e_q, scales, 80, m=m, n_actual=8900)
+        want = fused_topk_int8_plain(q, e_q, scales, 80, m=m, n_actual=8900)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert fused_topk_int8.launches == before + 2
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("b,nprobe,n_clusters,rpc,d", [(3, 4, 16, 384, 64), (32, 8, 64, 1280, 1024), (1, 1, 2, 128, 16)])
+def test_probe_kernel_matches_plain(gen, int8, b, nprobe, n_clusters, rpc, d):
+    q = _unit(gen, b, d)
+    if int8:
+        blocks, scales = _int8_rows(gen, n_clusters * rpc, d)
+        blocks, scales = blocks.view(n_clusters, rpc, d), scales.view(n_clusters, rpc)
+    else:
+        blocks, scales = _unit(gen, n_clusters * rpc, d).view(n_clusters, rpc, d), None
+    valid = (torch.rand((n_clusters, rpc), generator=gen, device="cuda") > 0.3).to(torch.int32)
+    probe = torch.randint(0, n_clusters, (b, nprobe), generator=gen, device="cuda", dtype=torch.int32)
+    probe[:, 0] = probe[0, 0].item()  # a cluster every query probes
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(probe_scores, counter)
+    got = probe_scores(probe, q, blocks, valid, scales)
+    want = probe_scores_plain(probe, q, blocks, valid, scales)
+    torch.cuda.synchronize()
+    assert getattr(probe_scores, counter) == before + 1
+    pad = valid[probe.long()] == 0
+    assert torch.isneginf(got[pad]).all() and torch.isfinite(got[~pad]).all()
+    assert (got[~pad] - want[~pad]).abs().max().item() <= TOPK_TOL
 
 
 @pytest.mark.parametrize("b,nh,s", [(2, 3, 256), (3, 16, 512), (1, 2, 2048)])

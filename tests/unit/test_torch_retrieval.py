@@ -113,11 +113,12 @@ def test_engine_single_query_cache_matches_reference():
 
 
 def test_engine_refuses_unported_tiers():
+    """Only the multi-device mesh is still unported; the int8 and IVF tiers
+    build (their parity with the reference is in test_torch_int8.py and
+    test_torch_ivf.py)."""
     indexes = {"a": _module("a", 20, 3, seed=7)}
-    with pytest.raises(NotImplementedError, match="A12"):
-        MultiIndexEngine(indexes, device="cpu", corpus_dtype="int8")
-    with pytest.raises(NotImplementedError, match="A13"):
-        MultiIndexEngine(indexes, device="cpu", ivf_threshold=10)
+    assert MultiIndexEngine(indexes, device="cpu", corpus_dtype="int8", use_fused=True)._stacked_scales is not None
+    assert MultiIndexEngine(indexes, device="cpu", ivf_threshold=10, ivf_clusters=4)._ivf is not None
     with pytest.raises(NotImplementedError, match="A15"):
         MultiIndexEngine(indexes, device="cpu", mesh=object())
 
