@@ -9,8 +9,13 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    with nvcc into ``tensortruth_tpu_torch/_build/``;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with the tolerance stated below, and both
-   timed with CUDA events: B1 fused top-k, B2 its int8 variant, B3
-   attention, B4 the IVF probe over bf16 and over int8 blocks;
+   timed with CUDA events, each beside its bound (the least time the card
+   could take for the same work, from this run's inputs) and, where one
+   PyTorch call computes the same function, beside that call: B1 fused
+   top-k, B2 its int8 variant, B3 attention (beside
+   ``scaled_dot_product_attention``), B4 the IVF probe over bf16 and over
+   int8 blocks, B5 the tensor-core product at the int8 probe's shape, bf16
+   and int8, both block orders (beside ``torch.mm`` and ``torch._int_mm``);
 4. main path: write a two-module index (this repository's own docs, chunked
    and embedded by the port, plus a synthetic module that brings the
    stacked corpus to 262,144 leaf rows), load it with the port's
@@ -29,13 +34,17 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    and ``ivf_threshold=1_048_576`` takes the IVF tier over int8 blocks (B4's
    int8 variant) and answers one 32-query batch. Each checks its placement,
    its answers, a recall or self-retrieval rate, and that its kernel was
-   launched while it was driven.
+   launched while it was driven;
+6. probe path: the int8 tensor-core probe
+   (``tensortruth_tpu_torch.scripts.probe_int8_mma.run()``) times B5's four
+   variants at M=16384, K=1024, N=4096 and applies the reference's decision
+   rule; B5 must have been launched, bf16 and int8, while it ran.
 
 The last three lines are the card's name and power limit, a JSON object
 describing each kernel, and the final ``{"ok": true, "device": ...}`` line.
-Nothing here imports JAX or the JAX package: the host code the port shares
-with it comes through ``tensortruth_tpu_torch.shared``. All scratch files go
-to a temporary directory inside the checkout that is removed at exit.
+Nothing here imports JAX or the JAX package; the host code (index, chunker,
+config) is the port's own. All scratch files go to a temporary directory
+inside the checkout that is removed at exit.
 """
 
 from __future__ import annotations
@@ -65,6 +74,11 @@ ATTN_TOL = 2e-2
 # different orders (B4's int8 variant then applies one f32 scale); padding
 # slots are -inf in both, exactly.
 PROBE_TOL = 1e-4
+# Kernel B5 vs its plain version: int8 -> int32 must be bit-exact. bf16 -> f32
+# sums the same exact products in f32 in another order; with N(0, 1) operands
+# and K = 1024 the outputs reach about 175 (sigma 32), where one f32 ulp is
+# 1.5e-5, and two summation orders differ by a few tens of ulps.
+MATMUL_TOL = 1e-3
 # Fused vs exact top-20 over the main path's corpus: expected loss of the
 # bucketed candidates is about k^2 / (2 c_out) = 0.1 items of 20. The same
 # holds for B2 against the exact top-20 over its own (dequantised) scores.
@@ -82,6 +96,12 @@ PROBE_SHAPE = {"b": 32, "nprobe": 32, "clusters": 1024, "rpc": 3072, "d": 1024}
 # 250 tokens per rerank pair.
 CHUNK_WORDS = [242, 242, 242, 242, 242, 242, 118, 118, 118, 215]
 POOL_SIZE = 4096
+
+# One H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W): the
+# least time for some work is the larger of its bytes over the memory rate and
+# its operations over the tensor cores' rate for the operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 KERNELS = {
     "fused_topk": {
@@ -108,6 +128,16 @@ KERNELS = {
         "route": "cuda",
         "source": "tensortruth_tpu_torch/csrc/ivf_probe.cu",
         "replaces": "tensortruth_tpu/ops/ivf.py:124",
+    },
+    "tc_matmul": {
+        "route": "cuda",
+        "source": "tensortruth_tpu_torch/csrc/tc_matmul.cu",
+        "replaces": "scripts/probe_int8_mxu_pallas.py:50",
+    },
+    "tc_matmul_int8": {
+        "route": "cuda",
+        "source": "tensortruth_tpu_torch/csrc/tc_matmul.cu",
+        "replaces": "scripts/probe_int8_mxu_pallas.py:50",
     },
 }
 
@@ -146,6 +176,19 @@ def in_turns(torch, kernel, plain) -> tuple[float, float]:
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, ops: int, kind: str = "bf16") -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the peak
+    rate for ``kind`` operands, whichever is longer."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def unit_rows(torch, gen, n: int, d: int, dtype):
@@ -192,12 +235,13 @@ def check_fused_topk(torch) -> dict:
     check(torch.equal(tv, pv) and torch.equal(ti, pi), "fused_topk: planted ties ordered differently")
 
     ms, plain_ms = in_turns(torch, lambda: fused_topk(q, e, k), lambda: fused_topk_plain(q, e, k))
+    bnd = bound(nbytes(q, e, *got), 2 * b * n * d)
     log(
         f"kernel fused_topk B={b} N={n} D={d} k={k} bf16: max_abs_err={err:.3g} "
         f"(tol {TOPK_TOL}), near-tie swaps={swapped}, planted ties exact; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
     )
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
 
 
 def check_fused_topk_int8(torch) -> dict:
@@ -223,6 +267,7 @@ def check_fused_topk_int8(torch) -> dict:
     ms, plain_ms = in_turns(
         torch, lambda: fused_topk_int8(q, e_q, scales, k), lambda: fused_topk_int8_plain(q, e_q, scales, k)
     )
+    bnd = bound(nbytes(q, e_q, scales, *got), 2 * b * n * d)
     del e_q, scales, got, want
     torch.cuda.empty_cache()  # the plain version's 4 GiB bf16 copy goes too
 
@@ -238,9 +283,10 @@ def check_fused_topk_int8(torch) -> dict:
     log(
         f"kernel fused_topk_int8 B={b} N={n} D={d} k={k} int8 (quantize_corpus on the host, "
         f"{quantize_s:.1f} s): max_abs_err={err:.3g} (tol {TOPK_TOL}), near-tie swaps={swapped}, "
-        f"planted ties exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        f"planted ties exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
     )
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
 
 
 def check_ivf_probe(torch) -> dict[str, dict]:
@@ -281,19 +327,29 @@ def check_ivf_probe(torch) -> dict[str, dict]:
             torch, lambda: probe_scores(probe, q, blocks, valid, scales),
             lambda: probe_scores_plain(probe, q, blocks, valid, scales),
         )
+        # What this probe array needs: each valid row of a probed cluster read
+        # once (with its scale), the probed clusters' valid flags, and one dot
+        # product per (query, valid probed slot).
+        probed = torch.unique(probe.long())
+        rows = int(valid[probed].sum())
+        n_bytes = rows * (d * blocks.element_size() + (4 if int8 else 0)) + probed.numel() * rpc * 4
+        bnd = bound(n_bytes + nbytes(probe, q, got), 2 * d * int((~pad).sum()))
         log(
             f"kernel {name} B={b} nprobe={nprobe} clusters={c} rpc={rpc} D={d} "
             f"{blocks.dtype} blocks ({gib(blocks.numel() * blocks.element_size())}), "
             f"{int(pad.sum())} padding slots probed: max_abs_err={err:.3g} (tol {PROBE_TOL}); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {probed.numel()} distinct clusters probed, "
+            f"{rows} valid rows in them: bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
         )
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
         del blocks, scales, got, want
         torch.cuda.empty_cache()
     return out
 
 
 def check_attention(torch) -> dict:
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
     from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -319,23 +375,78 @@ def check_attention(torch) -> dict:
         ms, plain_ms = in_turns(
             torch, lambda: blocked_attention(q, k, v, mask), lambda: attention_reference(q, k, v, mask)
         )
+        # The library yardstick: the same function with the -1e9 bias as a float mask.
+        bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(q.dtype)
+        lib_err = (sdpa(q, k, v, attn_mask=bias).float() - ref.float()).abs().max().item()
+        library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=bias))
+        # What this mask needs: every query row against its real keys (a
+        # fully padded row averages all of V), read once.
+        keys = int(torch.where(lengths > 0, lengths, s).sum())
+        bnd = bound(nbytes(q, out, mask) + nbytes(k, v) * keys // (b * s), 4 * nh * s * dh * keys)
         log(
             f"kernel blocked_attention B={b} NH={nh} S={s} DH={dh} bf16: max_abs_err={err:.3g} "
-            f"(tol {ATTN_TOL}), padded-row err={pad_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f"(tol {ATTN_TOL}), padded-row err={pad_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, {keys} of {b * s} keys real), "
+            f"scaled_dot_product_attention {library_ms:.4f} ms (max |err| {lib_err:.3g}, not asserted)"
         )
         worst = max(worst, err)
-        timing[s] = (ms, plain_ms)
-        del q, k, v, out, ref
+        timing[s] = {"ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms}
+        del q, k, v, out, ref, bias
         torch.cuda.empty_cache()
-    ms, plain_ms = timing[1024]  # the bucket the main path's long request lands in
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, **timing[1024]}  # the bucket the main path's long request lands in
+
+
+def check_tc_matmul(torch) -> dict[str, dict]:
+    """B5 at the int8 probe's shape and on its inputs, bf16 and int8, both
+    block orders, against its plain version; timed beside the library's
+    product of the same operands into the same output type."""
+    from tensortruth_tpu_torch.ops.matmul import tc_matmul, tc_matmul_plain
+    from tensortruth_tpu_torch.scripts.probe_int8_mma import K, M, N, make_inputs
+
+    inputs = make_inputs(device="cuda")
+    library = {"bf16": lambda a, b: torch.mm(a, b, out_dtype=torch.float32), "int8": torch._int_mm}
+    out = {}
+    for name, operands in (("tc_matmul", "bf16"), ("tc_matmul_int8", "int8")):
+        a, b = inputs[operands]
+        want = tc_matmul_plain(a, b)
+        err = 0.0
+        for n_outer in (False, True):
+            got = tc_matmul(a, b, n_outer=n_outer)
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype and got.shape == want.shape, f"{name}: {got.dtype} {tuple(got.shape)}")
+            if operands == "int8":
+                check(torch.equal(got, want), f"{name} (n_outer={n_outer}): not bit-exact")
+            else:
+                err = max(err, (got - want).abs().max().item())
+                check(err <= MATMUL_TOL, f"{name} (n_outer={n_outer}): max |err| {err} > {MATMUL_TOL}")
+            del got
+        lib = library[operands]
+        lib_err = (lib(a, b).double() - want.double()).abs().max().item()
+        ms, plain_ms = in_turns(torch, lambda: tc_matmul(a, b), lambda: tc_matmul_plain(a, b))
+        n_outer_ms = cuda_ms(torch, lambda: tc_matmul(a, b, n_outer=True))
+        library_ms = cuda_ms(torch, lambda: lib(a, b))
+        bnd = bound(nbytes(a, b, want), 2 * M * K * N, operands)
+        log(
+            f"kernel {name} M={M} K={K} N={N} {operands} -> {want.dtype}: max_abs_err={err:.3g} "
+            f"({'bit-exact' if operands == 'int8' else f'tol {MATMUL_TOL}'}, both block orders); kernel "
+            f"{ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOPS), N-tile-major {n_outer_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {library_ms:.4f} ms "
+            f"(max |err| {lib_err:.3g}, not asserted)"
+        )
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms}
+        del want
+        torch.cuda.empty_cache()
+    bf16, int8 = out["tc_matmul"], out["tc_matmul_int8"]
+    log(f"B5 int8 over bf16: {bf16['ms'] / int8['ms']:.3f}x measured; the bounds allow "
+        f"{bf16['bound_ms'] / int8['bound_ms']:.3f}x at this shape")
+    return out
 
 
 # -- phase 4: the main path --------------------------------------------------
 
 
 def docs_nodes(tokenizer) -> list:
-    from tensortruth_tpu_torch.shared import chunk_document
+    from tensortruth_tpu_torch.index import chunk_document
 
     files = sorted((ROOT / "docs").glob("*.md")) + [ROOT / "README.md", ROOT / "SURVEY.md"]
     nodes = []
@@ -352,7 +463,7 @@ def synthetic_index(torch, n_rows: int, dim: int, device: str = "cuda"):
     of POOL_SIZE strings, rows random unit vectors from SEED."""
     import numpy as np
 
-    from tensortruth_tpu_torch.shared import HierarchyStore, Node, VectorIndex
+    from tensortruth_tpu_torch.index import HierarchyStore, Node, VectorIndex
 
     words = "retrieval engine shard merge index token kernel matmul embed chunk".split()
     pool = [
@@ -434,11 +545,12 @@ def profile_request(torch, svc, text: str) -> None:
 
 
 def run_main_path(torch, work: Path) -> dict:
+    from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
+    from tensortruth_tpu_torch.index import VectorIndex
     from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
     from tensortruth_tpu_torch.ops.attention import blocked_attention
     from tensortruth_tpu_torch.ops.topk import exact_topk, fused_topk
     from tensortruth_tpu_torch.services.rag_service import RAGService
-    from tensortruth_tpu_torch.shared import TensorTruthTPUConfig, VectorIndex
 
     t0 = time.perf_counter()
     embedder = ModelManager.get_instance().get_embedder(ModelSpec("BAAI/bge-m3"), device="cuda")
@@ -604,13 +716,14 @@ def run_capacity_path(torch, work: Path) -> dict:
     all at 2,097,152 rows x 1024. Returns the launches counted on each."""
     import numpy as np
 
+    from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
+    from tensortruth_tpu_torch.index import VectorIndex
     from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
     from tensortruth_tpu_torch.ops.ivf import ivf_search, probe_scores
     from tensortruth_tpu_torch.ops.matmul import mm_f32
     from tensortruth_tpu_torch.ops.topk import exact_topk, fused_topk_int8
     from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
     from tensortruth_tpu_torch.services.rag_service import RAGService
-    from tensortruth_tpu_torch.shared import TensorTruthTPUConfig, VectorIndex
 
     model_dir = work / "indexes" / "bge-m3"
     docs_rows = VectorIndex.load(model_dir / "docs").n_rows
@@ -721,7 +834,33 @@ def run_capacity_path(torch, work: Path) -> dict:
     return launches
 
 
+# -- phase 6: the probe path --------------------------------------------------
+
+
+def run_probe_path() -> dict:
+    """The int8 tensor-core probe, as ``python -m
+    tensortruth_tpu_torch.scripts.probe_int8_mma`` runs it. Returns the
+    launches of B5 counted while it ran."""
+    import math
+
+    from tensortruth_tpu_torch.ops.matmul import tc_matmul
+    from tensortruth_tpu_torch.scripts import probe_int8_mma
+
+    tc_matmul.launches = tc_matmul.launches_int8 = 0
+    result = probe_int8_mma.run(device="cuda")
+    launches = {"tc_matmul": tc_matmul.launches, "tc_matmul_int8": tc_matmul.launches_int8}
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the probe path")
+    check(set(result["variants"]) == set(probe_int8_mma.VARIANTS)
+          and all(math.isfinite(v["ms"]) and v["ms"] > 0 for v in result["variants"].values()),
+          f"probe variants {result['variants']}")
+    log(f"probe path: int8 over bf16 {result['int8_over_bf16']:.3f}x (rule >= {probe_int8_mma.DECISION_RATIO}x), "
+        f"quantized rerank pays: {result['quantized_rerank_pays']}; launches {launches}")
+    return launches
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -755,6 +894,7 @@ def main() -> None:
             "fused_topk_int8": check_fused_topk_int8(torch),
             "blocked_attention": check_attention(torch),
             **check_ivf_probe(torch),
+            **check_tc_matmul(torch),
         }
         t0 = time.perf_counter()
         launches = run_main_path(torch, work)
@@ -762,6 +902,9 @@ def main() -> None:
         t0 = time.perf_counter()
         launches |= run_capacity_path(torch, work)
         log(f"capacity path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches |= run_probe_path()
+        log(f"probe path: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -769,6 +912,7 @@ def main() -> None:
         {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}
         for name in KERNELS
     ]
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

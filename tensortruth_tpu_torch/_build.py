@@ -52,6 +52,12 @@ _SIGNATURES = {
         _i32, _i32, _i32, _i32,                  # b, nprobe, rpc, d
         _vp,                                     # stream
     ],
+    "tt_tc_matmul": [
+        _vp, _vp, _vp,                           # a, b, out
+        _i32, _i32, _i32,                        # m, k, n
+        _i32, _i32,                              # int8, n_outer
+        _vp,                                     # stream
+    ],
     "tt_blocked_attention": [
         _vp, _vp, _vp, _vp, _vp,                 # q, k, v, mask, out
         _i32, _i32, _i32,                        # b, nh, s

@@ -12,7 +12,7 @@ import logging
 from dataclasses import dataclass, field
 from pathlib import Path
 
-from tensortruth_tpu.index.store import VectorIndex, resolve_module_dir, sanitize_model_id
+from tensortruth_tpu_torch.index.store import VectorIndex, resolve_module_dir, sanitize_model_id
 from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
 from tensortruth_tpu_torch.pipeline import QueryPipeline
 from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
@@ -52,8 +52,8 @@ def load_engine_for_modules(
     ``extra_index_paths`` are session/project document indexes (absolute
     VectorIndex dirs) attached beside catalog modules. A mesh (argument or
     ``rag.mesh.enabled``) is not ported yet and raises."""
-    from tensortruth_tpu.app.config import load_config
-    from tensortruth_tpu.app.paths import get_base_indexes_dir
+    from tensortruth_tpu_torch.app.config import load_config
+    from tensortruth_tpu_torch.app.paths import get_base_indexes_dir
 
     params = dict(params or {})
     config = config or load_config()

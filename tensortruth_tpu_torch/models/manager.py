@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-from tensortruth_tpu.tokenization import load_tokenizer
+from tensortruth_tpu_torch.tokenization import load_tokenizer
 from tensortruth_tpu_torch.models.embedder import Embedder
 from tensortruth_tpu_torch.models.reranker import Reranker
 from tensortruth_tpu_torch.models.xlmr import (

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 from collections import defaultdict
 
-from tensortruth_tpu.index.nodes import HierarchyStore
+from tensortruth_tpu_torch.index.nodes import HierarchyStore
 
 
 def auto_merge(

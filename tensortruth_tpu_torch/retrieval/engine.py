@@ -36,8 +36,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tensortruth_tpu.index.nodes import Node
-from tensortruth_tpu.index.store import VectorIndex
+from tensortruth_tpu_torch.index.nodes import Node
+from tensortruth_tpu_torch.index.store import VectorIndex
 from tensortruth_tpu_torch.ops.ivf import IVFIndex, build_ivf, host_tensor, ivf_search
 from tensortruth_tpu_torch.ops.topk import fused_topk_int8, quantize_corpus_streaming, topk_search
 from tensortruth_tpu_torch.retrieval.automerge import auto_merge

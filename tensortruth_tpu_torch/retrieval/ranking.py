@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 from enum import Enum
 from typing import Callable
 
-from tensortruth_tpu.core.source import SourceNode, SourceStatus
+from tensortruth_tpu_torch.core.source import SourceNode, SourceStatus
 
 DEFAULT_CONFIDENCE_CUTOFF = 0.35
 DEFAULT_CONFIDENCE_CUTOFF_HARD = 0.05

@@ -31,16 +31,16 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Generator
 
-from tensortruth_tpu.core.prompts import (
+from tensortruth_tpu_torch.core.prompts import (
     CONTEXT_PROMPT_LOW_CONFIDENCE,
     CONTEXT_PROMPT_NO_SOURCES,
     CONTEXT_PROMPT_TEMPLATE,
     LLM_ONLY_SYSTEM_PROMPT,
     NO_CONTEXT_FALLBACK_CONTEXT,
 )
-from tensortruth_tpu.core.source import SourceNode
-from tensortruth_tpu.services.chat_history import ChatHistoryService
-from tensortruth_tpu.services.condenser import condense_query
+from tensortruth_tpu_torch.core.source import SourceNode
+from tensortruth_tpu_torch.services.chat_history import ChatHistoryService
+from tensortruth_tpu_torch.services.condenser import condense_query
 from tensortruth_tpu_torch.engine import RAGEngine, load_engine_for_modules
 from tensortruth_tpu_torch.retrieval.metrics import compute_retrieval_metrics
 from tensortruth_tpu_torch.retrieval.ranking import (
@@ -106,7 +106,7 @@ def _params_hash(modules: list[str], params: dict, paths: list[str]) -> str:
 
 class RAGService:
     def __init__(self, config=None, llm_factory=None):
-        from tensortruth_tpu.app.config import load_config
+        from tensortruth_tpu_torch.app.config import load_config
 
         self.config = config or load_config()
         self.chat_history_service = ChatHistoryService(self.config)
@@ -240,7 +240,7 @@ class RAGService:
     def _get_llm(self, params: dict):
         if self._llm_factory is not None:
             return self._llm_factory(params)
-        from tensortruth_tpu.core.providers import create_llm
+        from tensortruth_tpu_torch.core.providers import create_llm
 
         return create_llm(params)
 
@@ -248,7 +248,7 @@ class RAGService:
 
     def enable_batching(self, max_batch: int = 32, max_wait_ms: float = 8.0) -> None:
         """Coalesce concurrent retrievals into batched device dispatches."""
-        from tensortruth_tpu.services.batcher import QueryBatcher
+        from tensortruth_tpu_torch.services.batcher import QueryBatcher
 
         self._batcher = QueryBatcher(
             self._run_retrieval_batch, max_batch=max_batch, max_wait_ms=max_wait_ms
@@ -315,7 +315,7 @@ class RAGService:
         — on a multi-core serving host the rerank tokenize stage shards
         across cores instead of serializing on one."""
         if self._feeder is None:
-            from tensortruth_tpu.services.feeder import HostFeeder, default_workers
+            from tensortruth_tpu_torch.services.feeder import HostFeeder, default_workers
 
             n = getattr(self.config.rag, "host_feed_workers", None)
             n = default_workers() if n in (None, -1) else int(n)
@@ -330,7 +330,7 @@ class RAGService:
         self, prompt: str, history_str: str, params: dict,
         engine: RAGEngine | None = None,
     ) -> RetrievalResult:
-        from tensortruth_tpu.utils.profiling import StageTimer
+        from tensortruth_tpu_torch.utils.profiling import StageTimer
 
         engine = engine if engine is not None else self._engine
         assert engine is not None

@@ -1,8 +1,9 @@
 """The port's online query path as a whole, against the reference's.
 
-One index dir (two modules, chunked by the shared hierarchical chunker from
-the ``sample_text`` fixture and embedded by the reference's tiny embedder) is
-served by each package's ``RAGService``. Both packages hold the same tiny
+One index dir (two modules, chunked by the reference's hierarchical chunker
+from the ``sample_text`` fixture and embedded by the reference's tiny
+embedder) is written to disk and served by each package's ``RAGService``,
+each with its own config, tokenizer and index classes. Both packages hold the same tiny
 float32 weights: the reference's parameters go into the port through
 ``params_from_jax``, and each package's ``ModelManager`` hands out its own
 runtime over them. The same queries must give the same node ids after merge
@@ -20,20 +21,23 @@ import numpy as np
 import pytest
 import torch
 
-from tensortruth_tpu.app.config import TensorTruthTPUConfig
-from tensortruth_tpu.core.providers import ChatDelta
+from tensortruth_tpu.app.config import TensorTruthTPUConfig as RefConfig
+from tensortruth_tpu.core.providers import ChatDelta as RefChatDelta
 from tensortruth_tpu.index import VectorIndex, chunk_document
 from tensortruth_tpu.models import manager as ref_manager
 from tensortruth_tpu.models import xlmr as ref_xlmr
 from tensortruth_tpu.models.embedder import Embedder as RefEmbedder
 from tensortruth_tpu.models.reranker import Reranker as RefReranker
 from tensortruth_tpu.services.rag_service import RAGService as RefService
-from tensortruth_tpu.tokenization import SimpleTokenizer
+from tensortruth_tpu.tokenization import SimpleTokenizer as RefTokenizer
+from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
+from tensortruth_tpu_torch.core.providers import ChatDelta
 from tensortruth_tpu_torch.models import manager as port_manager
 from tensortruth_tpu_torch.models import xlmr as port_xlmr
 from tensortruth_tpu_torch.models.embedder import Embedder
 from tensortruth_tpu_torch.models.reranker import Reranker
 from tensortruth_tpu_torch.services.rag_service import RAGService
+from tensortruth_tpu_torch.tokenization import SimpleTokenizer
 
 torch.set_num_threads(1)
 
@@ -48,15 +52,16 @@ QUERIES = [
 
 
 class StubLLM:
-    def __init__(self):
+    def __init__(self, delta=ChatDelta):
         self.calls = []
+        self.delta = delta
 
     def complete(self, prompt):
         return "condensed"
 
     def stream_chat(self, messages, system=None):
         self.calls.append(messages)
-        yield ChatDelta(text="stub answer")
+        yield self.delta(text="stub answer")
 
 
 def _port_model(cfg, params):
@@ -80,14 +85,15 @@ def _scaled(params, word=1.0, qk=1.0, vo=1.0, out=1.0):
 
 @pytest.fixture(scope="module")
 def runtimes():
-    tok = SimpleTokenizer(vocab_size=TINY["vocab_size"])
+    ref_tok, tok = RefTokenizer(vocab_size=TINY["vocab_size"]), SimpleTokenizer(vocab_size=TINY["vocab_size"])
     ecfg = ref_xlmr.XLMRConfig(**TINY, pooling="mean")
     rcfg = ref_xlmr.XLMRConfig(**TINY, num_labels=1)
     ep = _scaled(ref_xlmr.init_params(ecfg, jax.random.PRNGKey(11), dtype=jnp.float32), word=50.0)
     rp = _scaled(ref_xlmr.init_params(rcfg, jax.random.PRNGKey(12), dtype=jnp.float32),
                  word=50.0, qk=10.0, vo=10.0, out=50.0)
     return {
-        "ref": (RefEmbedder(ep, ecfg, tok, max_length=MAX_LEN), RefReranker(rp, rcfg, tok, max_length=MAX_LEN)),
+        "ref": (RefEmbedder(ep, ecfg, ref_tok, max_length=MAX_LEN),
+                RefReranker(rp, rcfg, ref_tok, max_length=MAX_LEN)),
         "port": (Embedder(_port_model(ecfg, ep), tok, max_length=MAX_LEN),
                  Reranker(_port_model(rcfg, rp), tok, max_length=MAX_LEN)),
     }
@@ -111,18 +117,19 @@ def env(tmp_path, monkeypatch, sample_text, runtimes):
         emb, rr = runtimes[pkg]
         monkeypatch.setattr(mgr, "get_embedder", lambda spec=None, _e=emb, **kw: _e)
         monkeypatch.setattr(mgr, "get_reranker", lambda spec=None, _r=rr, **kw: _r)
-    cfg = TensorTruthTPUConfig.default()
-    cfg.rag.default_embedding_model = "tiny-embedder"
-    cfg.rag.default_reranker = "tiny-reranker"
-    yield tmp_path, cfg
+    cfgs = RefConfig.default(), TensorTruthTPUConfig.default()  # (reference's, port's)
+    for cfg in cfgs:
+        cfg.rag.default_embedding_model = "tiny-embedder"
+        cfg.rag.default_reranker = "tiny-reranker"
+    yield tmp_path, cfgs
     ref_manager.ModelManager.reset_instance()
     port_manager.ModelManager.reset_instance()
 
 
 def _services(env, params):
-    tmp_path, cfg = env
-    llms = StubLLM(), StubLLM()
-    ref = RefService(config=cfg, llm_factory=lambda p: llms[0])
+    tmp_path, (ref_cfg, cfg) = env
+    llms = StubLLM(RefChatDelta), StubLLM()
+    ref = RefService(config=ref_cfg, llm_factory=lambda p: llms[0])
     ref.load_engine(["alpha", "beta"], params, indexes_dir=tmp_path / "indexes")
     port = RAGService(config=cfg, llm_factory=lambda p: llms[1])
     port.load_engine(["alpha", "beta"], params, indexes_dir=tmp_path / "indexes", device="cpu")

@@ -1,14 +1,19 @@
 """Import isolation and dispatch guards of the PyTorch/CUDA port.
 
-* Importing every module of ``tensortruth_tpu_torch`` (in a fresh
-  interpreter) leaves ``jax`` and ``triton`` out of ``sys.modules`` and
-  builds nothing; ``chip_smoke.py`` imports only the port.
-* The CUDA-only wrappers (B1, B2, B3, B4) raise on inputs their kernels do
-  not take instead of falling back; these checks run on the CPU because they
-  come before the device check.
+* A fresh interpreter imports every module of ``tensortruth_tpu_torch``,
+  builds nothing, loads a tiny CPU engine through the port's
+  ``RAGService.load_engine`` and answers one ``retrieve()``: afterwards no
+  module of the JAX package (``tensortruth_tpu`` or under it), no ``jax``
+  and no ``triton`` is in ``sys.modules``.
+* No source file of the port and not ``chip_smoke.py`` imports the JAX
+  package or jax, lazily or not (an AST walk over every import).
+* The CUDA-only wrappers (B1, B2, B3, B4, B5) raise on inputs their kernels
+  do not take instead of falling back; these checks run on the CPU because
+  they come before the device check.
 """
 
 import ast
+import os
 import pathlib
 import re
 import subprocess
@@ -17,40 +22,82 @@ import sys
 import pytest
 import torch
 
-from tensortruth_tpu_torch.ops import attention, ivf, topk
+from tensortruth_tpu_torch.ops import attention, ivf, matmul, topk
 
 torch.set_num_threads(1)
 
 PKG = pathlib.Path(__file__).resolve().parents[2] / "tensortruth_tpu_torch"
 
 
-def test_every_module_imports_without_jax():
-    code = (
-        "import importlib, pkgutil, sys, tensortruth_tpu_torch as p\n"
-        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "for m in mods: importlib.import_module(m)\n"
-        "from tensortruth_tpu_torch import _build\n"
-        "assert _build._lib is None and _build.build_seconds is None\n"
-        "print(len(mods), 'jax' in sys.modules, 'triton' in sys.modules)\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
-                         cwd=PKG.parent, check=True)
-    n, has_jax, has_triton = out.stdout.split()
-    assert int(n) >= 16
-    assert (has_jax, has_triton) == ("False", "False"), out.stdout
+_FRESH = """
+import importlib, pathlib, pkgutil, sys
+import tensortruth_tpu_torch as p
+
+mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+from tensortruth_tpu_torch import _build
+
+assert _build._lib is None and _build.build_seconds is None
+from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
+from tensortruth_tpu_torch.index import VectorIndex, chunk_document
+from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
+from tensortruth_tpu_torch.services.rag_service import RAGService
+
+work = pathlib.Path(sys.argv[1])
+cfg = TensorTruthTPUConfig.default()
+cfg.rag.default_embedding_model, cfg.rag.default_reranker = "tiny-embedder", "tiny-reranker"
+embedder = ModelManager.get_instance().get_embedder(ModelSpec("tiny-embedder"), device="cpu")
+text = (pathlib.Path(p.__file__).parents[1] / "README.md").read_text(encoding="utf-8")
+nodes = chunk_document(text, embedder.tokenizer, doc_id="readme", module="docs", chunk_sizes=[128, 32],
+                       chunk_overlap=8, metadata={"filename": "README.md", "doc_type": "library"})
+VectorIndex.build(nodes, embedder.encode, embedding_model="tiny-embedder", chunk_sizes=[128, 32],
+                  chunk_overlap=8).save(work / "indexes" / "tiny-embedder" / "docs")
+svc = RAGService(config=cfg, llm_factory=lambda params: None)
+svc.load_engine(["docs"], {"reranker_top_n": 3}, indexes_dir=work / "indexes", device="cpu")
+result = svc.retrieve("How does the engine merge chunks?")
+assert result.sources, result
+foreign = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("tensortruth_tpu", "jax", "jaxlib", "triton"))
+print(len(mods), len(result.sources), foreign)
+"""
 
 
-def test_chip_smoke_imports_only_the_port():
-    """The GPU smoke script drives the port: it imports no jax and no module
-    of the reference package (shared host code comes through the port's
-    ``shared`` module)."""
-    tree = ast.parse((PKG.parent / "chip_smoke.py").read_text())
+def test_every_module_imports_without_jax(tmp_path):
+    env = {**os.environ, "TENSOR_TRUTH_TPU_DATA_DIR": str(tmp_path / "data"),
+           "TENSOR_TRUTH_TPU_NATIVE_CACHE": str(tmp_path / "native")}
+    out = subprocess.run([sys.executable, "-c", _FRESH, str(tmp_path)], capture_output=True, text=True,
+                         timeout=300, cwd=PKG.parent, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    n, n_sources, foreign = out.stdout.strip().splitlines()[-1].split(" ", 2)
+    assert int(n) >= 40 and int(n_sources) > 0
+    assert foreign == "[]", foreign
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    """Top-level names of every absolute import in ``path``, wherever it
+    stands (module level or inside a function)."""
     roots = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+            "import_module", "__import__"
+        ) and node.args and isinstance(node.args[0], ast.Constant):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(PKG.parent)))
+def test_no_source_imports_the_jax_package(path):
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "tensortruth_tpu"}, (path, roots)
+
+
+def test_chip_smoke_imports_only_the_port():
+    roots = _imported_roots(PKG.parent / "chip_smoke.py")
     assert "tensortruth_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "tensortruth_tpu"}, roots
 
@@ -63,8 +110,8 @@ def test_package_sources_avoid_forbidden_shortcuts():
         assert "scaled_dot_product_attention" not in src, path
         assert "torch.compile" not in src, path
         assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path
-    for path in (PKG / "ops" / "topk.py", PKG / "ops" / "attention.py", PKG / "ops" / "ivf.py"):
-        assert "except" not in path.read_text(), path
+    for name in ("topk.py", "attention.py", "ivf.py", "matmul.py"):
+        assert "except" not in (PKG / "ops" / name).read_text(), name
 
 
 def _q(dtype=torch.bfloat16, n=4, d=32):
@@ -153,9 +200,34 @@ def test_attention_kernel_wrapper_refuses(q, k, mask, err):
         attention.blocked_attention_cuda(q, k, k, mask)
 
 
+def _mm(m=128, k=64, n=128, dtype=torch.bfloat16):
+    return torch.zeros((m, k), dtype=dtype), torch.zeros((k, n), dtype=dtype)
+
+
+@pytest.mark.parametrize(
+    "a,b,err",
+    [
+        (*_mm(dtype=torch.float32), TypeError),  # f32 operands
+        (_mm()[0], _mm(dtype=torch.int8)[1], TypeError),  # mixed operand types
+        (_mm()[0], torch.zeros((32, 128), dtype=torch.bfloat16), ValueError),  # K mismatch
+        (*_mm(m=100), ValueError),  # M not a multiple of the 128-row tile
+        (*_mm(n=200), ValueError),  # N not a multiple of the 128-column tile
+        (*_mm(k=48), ValueError),  # bf16 K not a multiple of 32
+        (*_mm(k=96, dtype=torch.int8), ValueError),  # int8 K not a multiple of 64
+        (torch.zeros((128, 128), dtype=torch.bfloat16)[:, ::2], _mm()[1], ValueError),  # non-contiguous
+        (*_mm(), ValueError),  # CPU tensors
+        (*_mm(dtype=torch.int8), ValueError),
+    ],
+)
+def test_tc_matmul_kernel_wrapper_refuses(a, b, err):
+    with pytest.raises(err):
+        matmul.tc_matmul_cuda(a, b)
+
+
 def _counts():
     return (topk.fused_topk.launches, topk.fused_topk_int8.launches, attention.blocked_attention.launches,
-            ivf.probe_scores.launches, ivf.probe_scores.launches_int8)
+            ivf.probe_scores.launches, ivf.probe_scores.launches_int8, matmul.tc_matmul.launches,
+            matmul.tc_matmul.launches_int8)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
@@ -167,6 +239,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     for int8 in (False, True):
         args = _probe_args(torch.int8 if int8 else torch.bfloat16, scales=int8)
         ivf.probe_scores(**args)
+        matmul.tc_matmul(*_mm(dtype=torch.int8 if int8 else torch.bfloat16), n_outer=int8)
     assert _counts() == before
 
 
@@ -175,7 +248,7 @@ def test_engine_default_device_is_cuda_and_never_moves_to_cpu():
     default device on a machine without CUDA fails loudly."""
     import numpy as np
 
-    from tensortruth_tpu.index import HierarchyStore, Node, VectorIndex
+    from tensortruth_tpu_torch.index import HierarchyStore, Node, VectorIndex
     from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
 
     store = HierarchyStore()

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_e2e import QUERIES, _services, env, runtimes  # noqa: F401 (fixtures)
-from test_torch_retrieval import _assert_same, _flat, _module, _queries
+from test_torch_retrieval import _assert_same, _flat, _module, _modules, _queries
 
 from tensortruth_tpu.ops import topk as ref
 from tensortruth_tpu.retrieval.engine import MultiIndexEngine as RefEngine
@@ -128,9 +128,9 @@ def test_scale_applies_after_the_dot():
 @pytest.mark.parametrize("parents,balance", [((60, 25, 40), "top_k_per_index"), ((900, 300, 400), "none"),
                                              ((1800,), "top_k_per_index")])
 def test_int8_engine_matches_reference(parents, balance):
-    indexes = {f"mod{i}": _module(f"mod{i}", n, 3, seed=i) for i, n in enumerate(parents)}
+    ref_indexes, indexes = _modules(parents)
     kw = dict(similarity_top_k=10, balance_strategy=balance, use_fused=True, corpus_dtype="int8")
-    want_engine = RefEngine(indexes, **kw)
+    want_engine = RefEngine(ref_indexes, **kw)
     got_engine = MultiIndexEngine(indexes, device="cpu", **kw)
     stacked, scales = got_engine._stacked, got_engine._stacked_scales
     assert stacked.dtype == torch.int8 and stacked.shape[0] % 2048 == 0 and scales.dtype == torch.float32
@@ -141,14 +141,14 @@ def test_int8_engine_matches_reference(parents, balance):
 
 
 def test_int8_without_fused_falls_back_to_bf16_like_reference(caplog):
-    indexes = {"a": _module("a", 60, 3, seed=1), "b": _module("b", 30, 3, seed=2)}
+    ref_indexes, indexes = _modules((60, 30), names=["a", "b"])
     kw = dict(similarity_top_k=10, use_fused=False, corpus_dtype="int8")
     with caplog.at_level("WARNING"):
         got_engine = MultiIndexEngine(indexes, device="cpu", **kw)
     assert "falling back to bfloat16" in caplog.text
     assert got_engine._stacked.dtype == torch.bfloat16 and got_engine._stacked_scales is None
     q = _queries(indexes)
-    _assert_same(_flat(RefEngine(indexes, **kw).retrieve_batch(q)), _flat(got_engine.retrieve_batch(q)))
+    _assert_same(_flat(RefEngine(ref_indexes, **kw).retrieve_batch(q)), _flat(got_engine.retrieve_batch(q)))
 
 
 def test_refresh_restacks_without_stale_scales():
@@ -166,8 +166,9 @@ def test_load_engine_int8_tier_matches_reference(env, monkeypatch, use_fused):  
     """The whole request path on the int8 tier: ``load_engine_for_modules``
     builds both engines, the fused query step is off in both (the query goes
     embed -> retriever), and the reranked sources and gate agree."""
-    _, cfg = env
-    cfg.rag.use_fused_topk = use_fused
+    _, cfgs = env
+    for cfg in cfgs:
+        cfg.rag.use_fused_topk = use_fused
     ref_svc, port_svc, _ = _services(env, {"reranker_top_n": 3, "corpus_dtype": "int8"})
     retriever = port_svc.engine.retriever
     assert (retriever._stacked_scales is not None) == use_fused
@@ -202,11 +203,12 @@ def test_pipeline_not_applicable_on_int8_ivf_or_mesh_tiers():
 
 
 def test_retrieved_node_text_and_to_dict_match_reference():
+    from tensortruth_tpu import index as ref_index
     from tensortruth_tpu.retrieval.engine import RetrievedNode as RefNode
     from tensortruth_tpu_torch.retrieval.engine import RetrievedNode
 
-    idx = _module("m", 3, 2, seed=0)
-    node = idx.store.get(idx.store.leaf_ids[1])
-    want, got = RefNode(node, 0.25, "m", 2), RetrievedNode(node, 0.25, "m", 2)
+    idx, ref_idx = _module("m", 3, 2, seed=0), _module("m", 3, 2, seed=0, pkg=ref_index)
+    node, ref_node = (i.store.get(i.store.leaf_ids[1]) for i in (idx, ref_idx))
+    want, got = RefNode(ref_node, 0.25, "m", 2), RetrievedNode(node, 0.25, "m", 2)
     assert got.text == want.text and got.node_id == want.node_id
     assert got.to_dict() == want.to_dict()

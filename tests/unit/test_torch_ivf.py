@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_e2e import QUERIES, _services, env, runtimes  # noqa: F401 (fixtures)
-from test_torch_retrieval import _assert_same, _flat, _module, _queries
+from test_torch_retrieval import _assert_same, _flat, _module, _modules, _queries
 
 from tensortruth_tpu import engine as ref_engine_mod
 from tensortruth_tpu.ops import ivf as ref
@@ -282,9 +282,9 @@ def test_ivf_engine_matches_reference(monkeypatch, corpus_dtype):
     """Past the threshold (twice it for int8) both engines build an IVF index
     from the same seed rows and return the same nodes."""
     monkeypatch.setattr(port, "_init_indices", _ref_init)
-    indexes = {f"mod{i}": _module(f"mod{i}", n, 3, seed=i) for i, n in enumerate((300, 120, 200))}
+    ref_indexes, indexes = _modules((300, 120, 200))
     kw = dict(similarity_top_k=10, ivf_threshold=900, ivf_clusters=16, ivf_nprobe=4, corpus_dtype=corpus_dtype)
-    want_engine, got_engine = RefEngine(indexes, **kw), MultiIndexEngine(indexes, device="cpu", **kw)
+    want_engine, got_engine = RefEngine(ref_indexes, **kw), MultiIndexEngine(indexes, device="cpu", **kw)
     assert got_engine._ivf is not None and got_engine._stacked is got_engine._ivf.blocks
     assert got_engine._stacked.dtype == (torch.int8 if corpus_dtype == "int8" else torch.bfloat16)
     assert got_engine.n_chunks == 1860 and "kmeans" in got_engine.placement_seconds
@@ -310,8 +310,9 @@ def test_load_engine_ivf_tier_matches_reference(env, monkeypatch, corpus_dtype):
     monkeypatch.setattr(ref_engine_mod, "MultiIndexEngine", functools.partial(RefEngine, **kw))
     monkeypatch.setattr(port_engine_mod, "MultiIndexEngine", functools.partial(MultiIndexEngine, **kw))
     monkeypatch.setattr(port, "_init_indices", _ref_init)
-    _, cfg = env
-    cfg.rag.use_fused_topk = True
+    _, cfgs = env
+    for cfg in cfgs:
+        cfg.rag.use_fused_topk = True
     ref_svc, port_svc, _ = _services(env, {"reranker_top_n": 3, "corpus_dtype": corpus_dtype})
     assert port_svc.engine.retriever._ivf is not None and ref_svc.engine.retriever._ivf is not None
     assert port_svc.engine.pipeline is None and ref_svc.engine.pipeline is None

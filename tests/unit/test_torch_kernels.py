@@ -14,6 +14,9 @@ scores, bf16 and int8 blocks) agrees within 1e-4 with -inf exactly on the
 padding slots. Kernel B3
 (attention) agrees within 2e-2 absolute on N(0, 1) inputs: both round the
 output to bf16, and they round the softmax weights at different points.
+Kernel B5 (tensor-core product): int8 -> int32 is bit-exact; bf16 -> f32
+agrees within 1e-3 absolute on N(0, 1) inputs (f32 sums of exact products in
+other orders, outputs up to about 6 * sqrt(K)).
 """
 
 import pytest
@@ -21,6 +24,7 @@ import torch
 
 from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention
 from tensortruth_tpu_torch.ops.ivf import probe_scores, probe_scores_plain
+from tensortruth_tpu_torch.ops.matmul import tc_matmul, tc_matmul_plain
 from tensortruth_tpu_torch.ops.topk import (
     fused_topk,
     fused_topk_int8,
@@ -32,6 +36,7 @@ pytestmark = pytest.mark.requires_cuda
 
 TOPK_TOL = 1e-4
 ATTN_TOL = 2e-2
+MATMUL_TOL = 1e-3
 
 
 @pytest.fixture
@@ -178,3 +183,26 @@ def test_attention_kernel_takes_transposed_projections(gen):
     got = blocked_attention(q, k, v, mask)
     want = blocked_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("n_outer", [False, True])
+@pytest.mark.parametrize("m,k,n", [(128, 64, 128), (384, 1024, 256), (1024, 192, 640)])
+def test_tc_matmul_kernel_matches_plain(gen, int8, n_outer, m, k, n):
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda")
+    if int8:  # the full int8 range, -128 included
+        a, b = (torch.clamp(x * 40, -128, 127).to(torch.int8) for x in (a, b))
+    else:
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(tc_matmul, counter)
+    got = tc_matmul(a, b, n_outer=n_outer)
+    want = tc_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert getattr(tc_matmul, counter) == before + 1
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    if int8:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= MATMUL_TOL

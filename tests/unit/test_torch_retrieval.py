@@ -2,8 +2,8 @@
 
 * ``retrieval/{automerge,ranking,metrics}.py`` are copies: they must give the
   originals' outputs exactly.
-* ``MultiIndexEngine``: the same ``VectorIndex`` set gives the same
-  ``RetrievedNode`` ids, modules and order, with scores within 1e-6 (both
+* ``MultiIndexEngine``: the same ``VectorIndex`` set (built by each package
+  from the same inputs) gives the same ``RetrievedNode`` ids, modules and order, with scores within 1e-6 (both
   stack a bf16 corpus and sum exact bf16 products in float32, in different
   orders), for 1 and 3 modules, both balance strategies, and corpora below
   and above the 4096-row exact/fused cut-over (the reference's Pallas kernel
@@ -16,12 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from tensortruth_tpu.core.source import SourceNode
-from tensortruth_tpu.index import HierarchyStore, Node, VectorIndex
+from tensortruth_tpu import index as ref_index
+from tensortruth_tpu.core.source import SourceNode as RefSourceNode
 from tensortruth_tpu.retrieval import automerge as ref_automerge
 from tensortruth_tpu.retrieval import metrics as ref_metrics
 from tensortruth_tpu.retrieval import ranking as ref_ranking
 from tensortruth_tpu.retrieval.engine import MultiIndexEngine as RefEngine
+from tensortruth_tpu_torch import index as port_index
+from tensortruth_tpu_torch.core.source import SourceNode
 from tensortruth_tpu_torch.retrieval import automerge, metrics, ranking
 from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
 
@@ -30,11 +32,14 @@ torch.set_num_threads(1)
 DIM = 32
 
 
-def _module(name: str, n_parents: int, kids: int, seed: int) -> VectorIndex:
+def _module(name: str, n_parents: int, kids: int, seed: int, pkg=port_index):
     """n_parents parents with ``kids`` leaves each; siblings embed near their
-    parent's centroid so a query near it retrieves them together (merges)."""
+    parent's centroid so a query near it retrieves them together (merges).
+    ``pkg`` is the index package whose classes hold it (the port's or the
+    reference's): the two packages' classes are not the same classes."""
+    Node = pkg.Node
     rng = np.random.default_rng(seed)
-    store = HierarchyStore()
+    store = pkg.HierarchyStore()
     rows = []
     centroids = rng.standard_normal((n_parents, DIM)).astype(np.float32)
     for p in range(n_parents):
@@ -50,7 +55,16 @@ def _module(name: str, n_parents: int, kids: int, seed: int) -> VectorIndex:
     row_ids = store.finalize_leaves()
     emb = np.stack(rows)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
-    return VectorIndex(emb, row_ids, store, {"embedding_model": "tiny-embedder"})
+    return pkg.VectorIndex(emb, row_ids, store, {"embedding_model": "tiny-embedder"})
+
+
+def _modules(parents, names=None):
+    """The same modules built by each package: (reference's, port's)."""
+    names = names or [f"mod{i}" for i in range(len(parents))]
+    return tuple(
+        {name: _module(name, n, 3, seed=i, pkg=pkg) for i, (name, n) in enumerate(zip(names, parents))}
+        for pkg in (ref_index, port_index)
+    )
 
 
 def _queries(indexes, n=6, seed=0):
@@ -89,9 +103,9 @@ ENGINE_CASES = [
 
 @pytest.mark.parametrize("parents,balance,use_fused", ENGINE_CASES)
 def test_engine_matches_reference(parents, balance, use_fused):
-    indexes = {f"mod{i}": _module(f"mod{i}", n, 3, seed=i) for i, n in enumerate(parents)}
+    ref_indexes, indexes = _modules(parents)
     kw = dict(similarity_top_k=10, balance_strategy=balance, use_fused=use_fused)
-    want_engine = RefEngine(indexes, **kw)
+    want_engine = RefEngine(ref_indexes, **kw)
     got_engine = MultiIndexEngine(indexes, device="cpu", **kw)
     assert got_engine.n_chunks == want_engine.n_chunks == 3 * sum(parents)
     assert got_engine._stacked.shape[0] % 2048 == 0 and got_engine._stacked.dtype == torch.bfloat16
@@ -102,8 +116,8 @@ def test_engine_matches_reference(parents, balance, use_fused):
 
 
 def test_engine_single_query_cache_matches_reference():
-    indexes = {"a": _module("a", 50, 3, seed=5), "b": _module("b", 30, 3, seed=6)}
-    want_engine, got_engine = RefEngine(indexes), MultiIndexEngine(indexes, device="cpu")
+    ref_indexes, indexes = _modules((50, 30), names=["a", "b"])
+    want_engine, got_engine = RefEngine(ref_indexes), MultiIndexEngine(indexes, device="cpu")
     q = _queries(indexes, n=3)
     for i, text in enumerate(["x", "y", "x"]):
         _assert_same(_flat([want_engine.retrieve(q[i % 2], text)]), _flat([got_engine.retrieve(q[i % 2], text)]))
@@ -129,19 +143,20 @@ def test_empty_engine():
 
 @pytest.mark.parametrize("seed", range(4))
 def test_auto_merge_copy_matches_original(seed):
-    idx = _module("m", 20, 3, seed=seed)
+    idx, ref_idx = _module("m", 20, 3, seed=seed), _module("m", 20, 3, seed=seed, pkg=ref_index)
     rng = np.random.default_rng(seed)
     leaves = list(idx.store.leaf_ids)
+    assert leaves == list(ref_idx.store.leaf_ids)
     picks = rng.choice(len(leaves), size=12, replace=False)
     hits = sorted(((leaves[i], float(rng.random())) for i in picks), key=lambda h: -h[1])
     for ratio in (0.3, 0.5, 0.9):
-        assert automerge.auto_merge(hits, idx.store, ratio) == ref_automerge.auto_merge(hits, idx.store, ratio)
+        assert automerge.auto_merge(hits, idx.store, ratio) == ref_automerge.auto_merge(hits, ref_idx.store, ratio)
 
 
-def _sources(seed):
+def _sources(seed, cls=SourceNode):
     rng = np.random.default_rng(seed)
     return [
-        SourceNode(id=f"s{i}", content=f"text {i} " * int(rng.integers(1, 30)),
+        cls(id=f"s{i}", content=f"text {i} " * int(rng.integers(1, 30)),
                    score=float(rng.random()), metadata={"filename": f"f{i % 3}.md", "doc_type": "library"})
         for i in range(8)
     ]
@@ -158,7 +173,7 @@ class _FakeReranker:
 
 @pytest.mark.parametrize("seed,top_n,threshold", [(0, 5, 0.0), (1, 8, 0.4), (2, 3, 0.9)])
 def test_ranking_and_gate_copies_match_originals(seed, top_n, threshold):
-    a, b = _sources(seed), _sources(seed)
+    a, b = _sources(seed, RefSourceNode), _sources(seed)
     ra = ref_ranking.RankingStage(_FakeReranker(seed), threshold=threshold).rank(a, "q", "be brief", top_n)
     rb = ranking.RankingStage(_FakeReranker(seed), threshold=threshold).rank(b, "q", "be brief", top_n)
     assert [s.to_dict() for s in rb.all_sources] == [s.to_dict() for s in ra.all_sources]
@@ -171,6 +186,6 @@ def test_ranking_and_gate_copies_match_originals(seed, top_n, threshold):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_metrics_copy_matches_original(seed):
-    srcs = _sources(seed)[: seed + 1]
-    assert metrics.compute_retrieval_metrics(srcs).to_dict() == ref_metrics.compute_retrieval_metrics(srcs).to_dict()
+    srcs, ref_srcs = _sources(seed)[: seed + 1], _sources(seed, RefSourceNode)[: seed + 1]
+    assert metrics.compute_retrieval_metrics(srcs).to_dict() == ref_metrics.compute_retrieval_metrics(ref_srcs).to_dict()
     assert metrics.calculate_entropy([3, 1, 0, 2]) == ref_metrics.calculate_entropy([3, 1, 0, 2])
