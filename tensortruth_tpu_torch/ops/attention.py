@@ -35,6 +35,21 @@ def attention_reference(
     return o.view(b, nh, s, dh).to(q.dtype)
 
 
+def tma_operands(q, k, v):
+    """q, k, v as the kernel's 4-D tensor maps take them, with their (batch,
+    head, row) strides in elements. TMA takes no zero stride: a broadcast view
+    (stride 0 along more than one element) is copied dense first, and a
+    dimension of extent 1, whose stride is never used, gets the row stride."""
+    b, nh, s, _ = q.shape
+    strides = q.stride()[:3]
+    if any(st == 0 and n > 1 for st, n in zip(strides, (b, nh, s))):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        strides = q.stride()[:3]
+    ss = strides[2]
+    sb, sh = (st if n > 1 else ss for st, n in zip(strides[:2], (b, nh)))
+    return q, k, v, (sb, sh, ss)
+
+
 def blocked_attention_cuda(q, k, v, mask) -> torch.Tensor:
     """Kernel B3 on the card. Raises on any input the kernel does not take."""
     b, nh, s, dh = q.shape
@@ -56,6 +71,7 @@ def blocked_attention_cuda(q, k, v, mask) -> torch.Tensor:
         raise ValueError("blocked_attention kernel needs a contiguous int32 (B, S) mask")
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v, mask)):
         raise ValueError("blocked_attention kernel needs q, k, v and mask on one CUDA device")
+    q, k, v, (sb, sh, ss) = tma_operands(q, k, v)
     out = torch.empty((b, nh, s, dh), dtype=q.dtype, device=q.device)
     err = _build.load().tt_blocked_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),

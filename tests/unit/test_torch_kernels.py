@@ -22,7 +22,7 @@ other orders, outputs up to about 6 * sqrt(K)).
 import pytest
 import torch
 
-from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention
+from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention, blocked_attention_cuda
 from tensortruth_tpu_torch.ops.ivf import probe_scores, probe_scores_plain
 from tensortruth_tpu_torch.ops.matmul import tc_matmul, tc_matmul_plain
 from tensortruth_tpu_torch.ops.topk import (
@@ -173,6 +173,34 @@ def test_attention_kernel_matches_plain(gen, b, nh, s):
     assert (out.float() - ref.float()).abs().max().item() <= ATTN_TOL
 
 
+@pytest.mark.parametrize(
+    "b,nh,s",
+    [
+        (2, 2, 64),      # one 64-row query tile: a block with one consumer warpgroup
+        (3, 2, 192),     # a full 128-row tile and a 64-row one
+        (3, 4, 256),
+        (3, 1, 16384),   # the longest S the kernel takes: 256 key tiles
+    ],
+)
+def test_attention_kernel_edges(gen, b, nh, s):
+    """Row 0's only real keys sit in the last key tile, row 1 is ragged, the
+    last row is fully padded."""
+    q, k, v = (torch.randn((b, nh, s, 64), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    mask = torch.zeros((b, s), dtype=torch.int32, device="cuda")
+    mask[0, -3:] = 1
+    if b > 2:
+        mask[1, : s // 2 + 5] = 1
+    before = blocked_attention.launches
+    out = blocked_attention_cuda(q, k, v, mask)
+    ref = attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert blocked_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATTN_TOL
+    uniform = v[-1].float().mean(dim=1, keepdim=True).expand(nh, s, 64)
+    assert (out[-1].float() - uniform).abs().max().item() <= ATTN_TOL
+
+
 def test_attention_kernel_takes_transposed_projections(gen):
     """The encoder passes (B, S, NH, DH) projections as (B, NH, S, DH) views."""
     b, s, nh = 2, 512, 4
@@ -206,3 +234,23 @@ def test_tc_matmul_kernel_matches_plain(gen, int8, n_outer, m, k, n):
         assert torch.equal(got, want)
     else:
         assert (got - want).abs().max().item() <= MATMUL_TOL
+
+
+@pytest.mark.parametrize("n_outer", [False, True])
+@pytest.mark.parametrize(
+    "m,k,n",
+    [
+        (128, 64, 256),     # one 128x256 tile, K of one stage
+        (256, 32, 128),     # K of half a stage (zeros past the end), N half a tile
+        (640, 320, 384),    # K of 5 stages (not a multiple of the ring's 4), N one and a half tiles
+        (2048, 1024, 2304), # 144 tiles: more than one SM's worth, the persistent walk wraps
+    ],
+)
+def test_tc_matmul_bf16_kernel_edges(gen, n_outer, m, k, n):
+    a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    got = tc_matmul(a, b, n_outer=n_outer)
+    want = tc_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n)
+    assert (got - want).abs().max().item() <= MATMUL_TOL
