@@ -16,7 +16,9 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    (beside ``scaled_dot_product_attention``; the ``kernels`` line gives
    S = 1024's numbers and every S under ``by_seq``), B4 the IVF probe over bf16 and over
    int8 blocks, B5 the tensor-core product at the int8 probe's shape, bf16
-   and int8, both block orders (beside ``torch.mm`` and ``torch._int_mm``);
+   and int8, both block orders (beside ``torch.mm`` and ``torch._int_mm``;
+   the int8 product also beside ``torch._int_mm`` on a column-major copy of
+   b, made outside the timing, and with the time of its own b^T kernel);
 4. main path: write a two-module index (this repository's own docs, chunked
    and embedded by the port, plus a synthetic module that brings the
    stacked corpus to 262,144 leaf rows), load it with the port's
@@ -108,7 +110,7 @@ KERNELS = {
     "fused_topk": {
         "route": "cuda",
         "source": "tensortruth_tpu_torch/csrc/fused_topk.cu",
-        "replaces": "tensortruth_tpu/ops/topk.py:74",
+        "replaces": "tensortruth_tpu/ops/topk.py:233",
     },
     "fused_topk_int8": {
         "route": "cuda",
@@ -118,7 +120,7 @@ KERNELS = {
     "blocked_attention": {
         "route": "cuda",
         "source": "tensortruth_tpu_torch/csrc/attention.cu",
-        "replaces": "tensortruth_tpu/ops/attention.py:33",
+        "replaces": "tensortruth_tpu/ops/attention.py:74",
     },
     "ivf_probe": {
         "route": "cuda",
@@ -133,12 +135,12 @@ KERNELS = {
     "tc_matmul": {
         "route": "cuda",
         "source": "tensortruth_tpu_torch/csrc/tc_matmul.cu",
-        "replaces": "scripts/probe_int8_mxu_pallas.py:50",
+        "replaces": "scripts/probe_int8_mxu_pallas.py:70",
     },
     "tc_matmul_int8": {
         "route": "cuda",
         "source": "tensortruth_tpu_torch/csrc/tc_matmul.cu",
-        "replaces": "scripts/probe_int8_mxu_pallas.py:50",
+        "replaces": "scripts/probe_int8_mxu_pallas.py:70",
     },
 }
 
@@ -165,6 +167,22 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of a kernel shorter than its host
+    launch: the calls are queued behind a device sleep, so the events time
+    them back to back and no host gap between them."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)  # about 2 ms of clock cycles, longer than queueing the calls
     start.record()
     for _ in range(iters):
         fn()
@@ -403,8 +421,11 @@ def check_attention(torch) -> dict:
 def check_tc_matmul(torch) -> dict[str, dict]:
     """B5 at the int8 probe's shape and on its inputs, bf16 and int8, both
     block orders, against its plain version; timed beside the library's
-    product of the same operands into the same output type."""
-    from tensortruth_tpu_torch.ops.matmul import tc_matmul, tc_matmul_plain
+    product of the same operands into the same output type (``library_ms``).
+    The int8 product is also timed beside ``torch._int_mm`` on a column-major
+    copy of b (cuBLAS's int8 kernels take b K-major; the copy is made outside
+    the timing), and its b^T kernel alone."""
+    from tensortruth_tpu_torch.ops.matmul import tc_matmul, tc_matmul_plain, transpose_int8_cuda
     from tensortruth_tpu_torch.scripts.probe_int8_mma import K, M, N, make_inputs
 
     inputs = make_inputs(device="cuda")
@@ -430,12 +451,20 @@ def check_tc_matmul(torch) -> dict[str, dict]:
         n_outer_ms = cuda_ms(torch, lambda: tc_matmul(a, b, n_outer=True))
         library_ms = cuda_ms(torch, lambda: lib(a, b))
         bnd = bound(nbytes(a, b, want), 2 * M * K * N, operands)
+        extra = ""
+        if operands == "int8":
+            b_cm = b.t().contiguous().t()
+            check(torch.equal(torch._int_mm(a, b_cm), want), f"{name}: torch._int_mm on column-major b differs")
+            extra = (f"; torch._int_mm with b column-major {cuda_ms(torch, lambda: torch._int_mm(a, b_cm)):.4f} ms "
+                     f"(bit-exact); the kernel's b^T alone {queued_ms(torch, lambda: transpose_int8_cuda(b)):.4f} ms "
+                     f"on the device ({cuda_ms(torch, lambda: transpose_int8_cuda(b)):.4f} ms a call from the host)")
+            del b_cm
         log(
             f"kernel {name} M={M} K={K} N={N} {operands} -> {want.dtype}: max_abs_err={err:.3g} "
             f"({'bit-exact' if operands == 'int8' else f'tol {MATMUL_TOL}'}, both block orders); kernel "
             f"{ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOPS), N-tile-major {n_outer_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {library_ms:.4f} ms "
-            f"({2 * M * K * N / library_ms / 1e9:.1f} TOPS; max |err| {lib_err:.3g}, not asserted)"
+            f"({2 * M * K * N / library_ms / 1e9:.1f} TOPS; max |err| {lib_err:.3g}, not asserted){extra}"
         )
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms}
         del want

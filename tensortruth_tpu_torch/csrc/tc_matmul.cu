@@ -19,54 +19,46 @@
 // allows is therefore at most 0.139 / 0.086 = 1.61x.
 //
 // The TPU kernel takes a 512x1024 output tile per grid step with the whole K
-// resident in VMEM; that f32 tile alone is 2 MiB. Here the two operand types
-// take two designs.
-//
-// bf16 (compute-bound, so built to keep the tensor cores fed): wgmma from
-// shared memory, fed by TMA through an mbarrier ring.
-// * A block owns a 128x256 output tile: two consumer warpgroups of 64 rows,
-//   each issuing wgmma m64n256k16 (f32 sums in 128 registers a thread) with
-//   both operands read from shared memory, and one producer warp.
-// * K streams in slices of 64 (128 bytes of an a row) through a ring of four
-//   48 KiB stages: the a slice (128 rows, one TMA box) and the b slice (64 k
-//   rows x 256 columns, four TMA boxes of 64 columns), both 128-byte swizzled.
-//   Each stage has a full barrier (the producer's expected bytes, completed by
-//   TMA) and an empty barrier (one arrival per consumer warp once the wgmma
-//   that read the stage has retired, wgmma.wait_group 1).
-// * b is (K, N) row-major, i.e. MN-major for the B operand: the descriptor's
-//   transpose bit takes it as it lies, with no transposed copy.
+// resident in VMEM; that f32 tile alone is 2 MiB. Here one design serves both
+// operand types: wgmma from shared memory, fed by TMA through an mbarrier
+// ring, templated on the operand type (struct Operand holds what differs).
+// * A block owns a 128 x kBN output tile (kBN: 256 bf16, 128 int8): two
+//   consumer warpgroups of 64 rows, each issuing wgmma m64n256k16 (bf16, f32
+//   sums in 128 registers a thread) or m64n128k32 (int8, s32 sums in 64)
+//   with both operands read from shared memory, and one producer warp.
+// * K streams in slices of 128 bytes of an a row (64 bf16, 128 int8) through
+//   a ring of stages (4 of 48 KiB bf16, 5 of 32 KiB int8): the a slice (128
+//   rows, one TMA box) and the b slice for kBN columns, both 128-byte
+//   swizzled. Each stage has a full barrier (the producer's expected bytes,
+//   completed by TMA) and an empty barrier (one arrival per consumer warp
+//   once the wgmma that read the stage has retired, wgmma.wait_group 1).
+// * b's operand layout. bf16: b is (K, N) row-major, i.e. MN-major for the B
+//   operand, and the descriptor's transpose bit takes it as it lies (four
+//   TMA boxes of 64 columns x 64 k). int8: 8-bit wgmma takes B only K-major
+//   (the transpose bit exists for 16-bit types only), so a small kernel
+//   (tt_transpose_s8) first writes b^T (N, K) into scratch the caller
+//   provides; b is 4 MiB at the probe's shape and is shared by all 128 rows
+//   of tiles, so this adds 8 MiB to 289 MB of traffic. The product then reads
+//   b^T K-major like a (one TMA box of 128 columns x 128 k).
 // * Persistent: one block per SM walks the output tiles (n_outer chooses
 //   N-tile-major or M-tile-major order), so the producer loads the next
-//   tile's slices while the consumers write this one's f32 sums.
-// * Epilogue: the 128 KiB f32 tile does not fit in shared memory beside the
-//   ring, and when every SM writes its tile at once the stores wait on
-//   device memory. Each warpgroup stages its sums 32 columns at a time in
-//   two 8 KiB buffers (the 128-byte swizzle of a 64 x 32 f32 TMA box, so the
-//   register-to-shared writes are free of bank conflicts) and one thread
+//   tile's slices while the consumers write this one's sums.
+// * Epilogue: each warpgroup stages its sums 32 columns at a time in 8 KiB
+//   buffers (the 128-byte swizzle of a 64 x 32 TMA box of 4-byte elements, so
+//   the register-to-shared writes are free of bank conflicts) and one thread
 //   hands each box to a TMA store; a buffer is rewritten once its store has
-//   read it (cp.async.bulk.wait_group.read 1). Stores straight from the
-//   registers, or larger staged boxes that leave room for fewer stages, ran
-//   slower; scripts/kernel_variants.py times the alternatives (PERF.md).
-// * Edges: K not a multiple of 64 reads zeros past the end (TMA fills them);
-//   N a multiple of 128 but not of 256 skips the loads and the stores of the
-//   missing half of the last column of tiles.
-//
-// int8 (memory-bound by its int32 output; first design, kept): 8-bit wgmma
-// takes only a K-major B, and b is (K, N). A block of 8 warps owns a 128x128
-// output tile, each warp 64x32 of it in registers, fed by mma.sync m16n8k32
-// (s8 in, s32 sums); K streams through shared memory in slices of 64 bytes of
-// an a row, copied with cp.async into a ring of three. Shared-memory rows are
-// XOR-swizzled in 16-byte chunks so that each 8-row ldmatrix phase reads 8
-// distinct bank groups. ldmatrix .trans exists only for 16-bit elements, and
-// m16n8k32 wants 4 consecutive k of one column in each register.
-// ldmatrix .trans over byte pairs (two adjacent columns) gives each register 2
-// k x 2 columns; its rows are chosen so that one register holds k = 4t, 4t+1
-// and its partner k = 4t+2, 4t+3, and __byte_perm splits the pair into one
-// register per column. So one ldmatrix.x4.trans feeds two MMAs, over the even
-// and over the odd columns of a 16-column group, and a thread's int32 sums
-// come out as 4 adjacent columns of a row: 16-byte stores, no transposed copy
-// of b anywhere. n_outer is the order in which block ids walk the tiles.
+//   read it (cp.async.bulk.wait_group.read). bf16 (compute-bound): two
+//   buffers, the rest of shared memory to the ring; the f32 tile (128 KiB)
+//   would not fit beside it. int8 (bound by writing its int32 output): the
+//   narrower tile's 64 KiB is staged whole, so its stores drain while the next
+//   tile's products run; at K = 1024 that beat 128 x 256 tiles with two
+//   buffers, which wait on the stores (scripts/kernel_variants.py times the
+//   alternatives; PERF.md).
+// * Edges: K not a multiple of the slice reads zeros past the end (TMA fills
+//   them); bf16 N a multiple of 128 but not of 256 skips the loads and the
+//   stores of the missing half of the last column of tiles.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,28 +68,18 @@ namespace {
 
 using namespace hopper;
 
-namespace bf16_wgmma {
-
-constexpr int kBM = 128, kBN = 256;  // output tile of a block
-constexpr int kBK = 64;              // k per stage: 128 bytes of an a row
-constexpr int kStages = 4;
+constexpr int kBM = 128;             // output rows of a block's tile (its columns: the operand type's kBN)
+constexpr int kSliceBytes = 128;     // bytes of an a row per stage
 constexpr int kConsumers = 2;                        // warpgroups, 64 output rows each
 constexpr int kProducerWarp = kConsumers * 4;        // the warp after them
 constexpr int kThreads = kConsumers * 128 + 32;
-constexpr int kATile = kBM * kBK * 2;                // 16 KiB
-constexpr int kBBox = 64 * kBK * 2;                  // 8 KiB: 64 columns of b over one slice
-constexpr int kStageBytes = kATile + (kBN / 64) * kBBox;  // 48 KiB
-// Epilogue: a warpgroup stages kEpiCols of its 64 rows' f32 sums per round in
-// one of kEpiBufs buffers, as TMA store boxes of 64 rows x kEpiBox columns
-// (128 bytes a row, the swizzle's span).
-constexpr int kEpiCols = 32, kEpiBufs = 2;
+constexpr int kATile = kBM * kSliceBytes;            // 16 KiB
+// Epilogue: a warpgroup stages kEpiCols of its 64 rows' sums per round in
+// one of the operand type's kEpiBufs buffers, as TMA store boxes of 64 rows x
+// kEpiBox columns (128 bytes a row, the swizzle's span).
+constexpr int kEpiCols = 32;
 constexpr int kEpiBox = 32;
-constexpr int kEpiRounds = kBN / kEpiCols;
 constexpr int kEpiBytes = 64 * kEpiCols * 4;
-constexpr int kSmemBytes =
-    1024 + kStages * kStageBytes + kConsumers * kEpiBufs * kEpiBytes + 2 * kStages * 8;  // slack, tiles, barriers
-static_assert(kEpiRounds % kEpiBufs == 0, "every tile's epilogue starts in buffer 0");
-static_assert(kSmemBytes <= 232448, "shared memory of one block");
 
 // D(64x256) += A(64x16) . B(16x256): bf16 operands in shared memory, f32 sums in
 // registers; scale_d == 0 overwrites D. A is K-major, B MN-major.
@@ -133,20 +115,119 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D(64x128) += A(64x32) . B(32x128): s8 operands in shared memory, both
+// K-major, s32 sums in registers; scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k32_ss(int (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// What the operand type changes: the tile's width, the accumulator, k per
+// slice, b's TMA boxes (kBoxCols output columns of kSliceBytes each), the
+// wgmma of one k-step, the ring's depth and the epilogue's buffers.
+template <typename T>
+struct Operand;
+
+template <>
+struct Operand<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr int kBN = 256;
+  static constexpr int kStages = 4, kEpiBufs = 2;  // bf16 ring and staging
+  static constexpr int kBK = kSliceBytes / 2;  // 64 k
+  static constexpr int kBoxCols = 64;          // b boxes: 64 columns x 64 k rows of 128 bytes, MN-major
+  static constexpr CUtensorMapDataType kIn = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr CUtensorMapDataType kOut = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  // b box j of a stage holds columns 64j.. for k rows (kt * kBK ..).
+  static __device__ __forceinline__ void load_b(void* dst, const CUtensorMap* map, uint64_t* bar, int n0, int kt) {
+    tma_load_2d(dst, map, bar, n0, kt * kBK);
+  }
+  // k-step kk (16 k, 32 bytes of an a row) of the slice at `st`: a K-major
+  // rows of 128 bytes; b MN-major, 16 k rows of 128 bytes per step, boxes
+  // kBBox apart.
+  static __device__ __forceinline__ void mma(float (&d)[kBN / 2], const unsigned char* st, int wg, int kk, int scale_d) {
+    constexpr int kBBox = kBoxCols * kSliceBytes;
+    wgmma_m64n256k16_ss(d, smem_desc(st + wg * 64 * 128 + kk * 32, 16, 1024),
+                        smem_desc(st + kATile + kk * 16 * 128, kBBox, 1024), scale_d);
+  }
+};
+
+template <>
+struct Operand<int8_t> {
+  using Acc = int;
+  static constexpr int kBN = 128;
+  static constexpr int kStages = 5, kEpiBufs = 4;  // int8 ring and staging: the whole tile
+  static constexpr int kBK = kSliceBytes;  // 128 k
+  static constexpr int kBoxCols = 128;     // b^T box: 128 columns (rows of b^T) x 128 k bytes, K-major
+  static constexpr CUtensorMapDataType kIn = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr CUtensorMapDataType kOut = CU_TENSOR_MAP_DATA_TYPE_INT32;
+  static __device__ __forceinline__ void load_b(void* dst, const CUtensorMap* map, uint64_t* bar, int n0, int kt) {
+    tma_load_2d(dst, map, bar, kt * kBK, n0);
+  }
+  // k-step kk (32 k, 32 bytes of a row) of a and of b^T, both K-major rows
+  // of 128 bytes.
+  static __device__ __forceinline__ void mma(int (&d)[kBN / 2], const unsigned char* st, int wg, int kk, int scale_d) {
+    wgmma_m64n128k32_ss(d, smem_desc(st + wg * 64 * 128 + kk * 32, 16, 1024),
+                        smem_desc(st + kATile + kk * 32, 16, 1024), scale_d);
+  }
+};
+
+// Shared memory of a block: slack for the 1024-byte alignment, the ring,
+// the epilogue's buffers, the barriers.
+template <typename T>
+__host__ __device__ constexpr int stage_bytes() { return kATile + Operand<T>::kBN * kSliceBytes; }  // 48 KiB at 256 columns
+
+template <typename T>
+__host__ __device__ constexpr int smem_bytes() {
+  using Op = Operand<T>;
+  static_assert((Op::kBN / kEpiCols) % Op::kEpiBufs == 0, "every tile's epilogue starts in buffer 0");
+  return 1024 + Op::kStages * stage_bytes<T>() + kConsumers * Op::kEpiBufs * kEpiBytes + 2 * Op::kStages * 8;
+}
+static_assert(smem_bytes<__nv_bfloat16>() <= 232448 && smem_bytes<int8_t>() <= 232448, "shared memory of one block");
+
+// Two sums side by side in shared memory, in their own type: moving f32
+// accumulators through integer registers (__float_as_uint) made ptxas
+// serialise every wgmma of the bf16 kernel (C7520).
+__device__ __forceinline__ void store2(unsigned char* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(unsigned char* p, int x, int y) { *reinterpret_cast<int2*>(p) = make_int2(x, y); }
+
+template <int kBN>
 __device__ __forceinline__ void tile_origin(int tile, int tiles_m, int tiles_n, int n_outer, int& m0, int& n0) {
   m0 = (n_outer ? tile % tiles_m : tile / tiles_n) * kBM;
   n0 = (n_outer ? tile / tiles_m : tile % tiles_n) * kBN;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
             const __grid_constant__ CUtensorMap map_o, int m, int k, int n, int n_outer) {
+  using Op = Operand<T>;
+  using Acc = typename Op::Acc;
+  constexpr int kBBox = Op::kBoxCols * kSliceBytes;
+  constexpr int kBN = Op::kBN, kStages = Op::kStages, kEpiBufs = Op::kEpiBufs;
+  constexpr int kStageBytes = stage_bytes<T>(), kEpiRounds = kBN / kEpiCols;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes + kConsumers * kEpiBufs * kEpiBytes);
   uint64_t* empty = full + kStages;
   const int tiles_m = m / kBM, tiles_n = (n + kBN - 1) / kBN;
-  const int tiles = tiles_m * tiles_n, slices = (k + kBK - 1) / kBK;
+  const int tiles = tiles_m * tiles_n, slices = (k + Op::kBK - 1) / Op::kBK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -164,14 +245,14 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       int m0, n0;
-      tile_origin(tile, tiles_m, tiles_n, n_outer, m0, n0);
-      const int boxes = min(kBN, n - n0) / 64;  // b boxes inside N
+      tile_origin<kBN>(tile, tiles_m, tiles_n, n_outer, m0, n0);
+      const int boxes = min(kBN, n - n0) / Op::kBoxCols;  // b boxes inside N
       for (int kt = 0; kt < slices; ++kt) {
         mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* st = smem + stage * kStageBytes;
         mbar_arrive_expect_tx(&full[stage], kATile + boxes * kBBox);
-        tma_load_2d(st, &map_a, &full[stage], kt * kBK, m0);
-        for (int j = 0; j < boxes; ++j) tma_load_2d(st + kATile + j * kBBox, &map_b, &full[stage], n0 + 64 * j, kt * kBK);
+        tma_load_2d(st, &map_a, &full[stage], kt * Op::kBK, m0);
+        for (int j = 0; j < boxes; ++j) Op::load_b(st + kATile + j * kBBox, &map_b, &full[stage], n0 + Op::kBoxCols * j, kt);
         if (++stage == kStages) stage = 0, phase ^= 1;
       }
     }
@@ -181,27 +262,21 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   // Consumer warpgroup wg: output rows wg * 64 .. + 63 of each tile.
   const int wg = warp / 4;
   unsigned char* epi = smem + kStages * kStageBytes + wg * kEpiBufs * kEpiBytes;
-  float acc[128];
+  Acc acc[kBN / 2];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
   int stage = 0;
   uint32_t phase = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     int m0, n0;
-    tile_origin(tile, tiles_m, tiles_n, n_outer, m0, n0);
+    tile_origin<kBN>(tile, tiles_m, tiles_n, n_outer, m0, n0);
     int held = -1;  // the stage the wgmma group in flight reads
     for (int kt = 0; kt < slices; ++kt) {
       mbar_wait(&full[stage], phase);
       const unsigned char* st = smem + stage * kStageBytes;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        // a: K-major rows of 128 bytes, 32 bytes per k16 step; b: MN-major,
-        // 16 k rows of 128 bytes per step, 64-column boxes kBBox apart.
-        const uint64_t da = smem_desc(st + wg * 64 * 128 + kk * 32, 16, 1024);
-        const uint64_t db = smem_desc(st + kATile + kk * 16 * 128, kBBox, 1024);
-        wgmma_m64n256k16_ss(acc, da, db, kt > 0 || kk > 0);
-      }
+      for (int kk = 0; kk < 4; ++kk) Op::mma(acc, st, wg, kk, kt > 0 || kk > 0);  // 32 bytes of k per step
       wgmma_commit();
       if (held >= 0) {
         wgmma_wait<1>();  // the previous slice's group has retired
@@ -230,8 +305,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
         const int j = round * (kEpiCols / 8) + jj;
         const int col = jj * 8 + 2 * t;  // in the round
         unsigned char* box = buf + (col / kEpiBox) * (64 * 128) + ((((col % kEpiBox) / 4) ^ (r % 8)) << 4) + (t % 2) * 8;
-        *reinterpret_cast<float2*>(box + r * 128) = make_float2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<float2*>(box + (r + 8) * 128) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        store2(box + r * 128, acc[4 * j], acc[4 * j + 1]);
+        store2(box + (r + 8) * 128, acc[4 * j + 2], acc[4 * j + 3]);
       }
       fence_async_shared();
       named_sync(1 + wg, 128);
@@ -247,207 +322,83 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   if (threadIdx.x % 128 == 0) bulk_wait_all();
 }
 
-cudaError_t launch(const void* a, const void* b, float* out, int m, int k, int n, int n_outer, cudaStream_t s) {
+// b^T of an int8 (k, n) row-major matrix into (n, k) row-major: a block per
+// 64 x 64 tile, read as 16-byte pieces of b's rows, written as 16-byte
+// pieces of b^T's rows (k and n multiples of 64).
+__global__ void __launch_bounds__(256) transpose_s8_kernel(const int8_t* __restrict__ b, int8_t* __restrict__ bt,
+                                                           int k, int n) {
+  __shared__ uint32_t tile[64][17];  // 64 k rows of 64 bytes, padded a word
+  const int n0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
+  const int j = threadIdx.x / 4, c = threadIdx.x % 4;
+  const uint4 v = *reinterpret_cast<const uint4*>(b + (long long)(k0 + j) * n + n0 + 16 * c);
+  tile[j][4 * c] = v.x;
+  tile[j][4 * c + 1] = v.y;
+  tile[j][4 * c + 2] = v.z;
+  tile[j][4 * c + 3] = v.w;
+  __syncthreads();
+  // Column j of the tile over k rows 16c .. 16c + 15: byte j % 4 of word j / 4.
+  const uint32_t pick = (j % 4) | ((j % 4 + 4) << 4);  // that byte of two words, side by side
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = 16 * c + 4 * q;
+    const uint32_t lo = __byte_perm(tile[r][j / 4], tile[r + 1][j / 4], pick);
+    const uint32_t hi = __byte_perm(tile[r + 2][j / 4], tile[r + 3][j / 4], pick);
+    w[q] = __byte_perm(lo, hi, 0x5410);
+  }
+  *reinterpret_cast<uint4*>(bt + (long long)(n0 + j) * k + k0 + 16 * c) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T>
+cudaError_t launch(const void* a, const void* b, void* out, int m, int k, int n, int n_outer, cudaStream_t s) {
+  using Op = Operand<T>;
   alignas(64) CUtensorMap map_a, map_b, map_o;
-  const uint64_t a_dims[2] = {uint64_t(k), uint64_t(m)}, a_strides[1] = {uint64_t(k) * 2};
-  const uint64_t b_dims[2] = {uint64_t(n), uint64_t(k)}, b_strides[1] = {uint64_t(n) * 2};
+  const uint64_t a_dims[2] = {uint64_t(k), uint64_t(m)}, a_strides[1] = {uint64_t(k) * sizeof(T)};
   const uint64_t o_dims[2] = {uint64_t(n), uint64_t(m)}, o_strides[1] = {uint64_t(n) * 4};
-  const uint32_t a_box[2] = {kBK, kBM}, b_box[2] = {64, kBK}, o_box[2] = {kEpiBox, 64};
-  if (!encode_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, 2, a_dims, a_strides, a_box) ||
-      !encode_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, 2, b_dims, b_strides, b_box) ||
-      !encode_map(&map_o, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, 2, o_dims, o_strides, o_box))
+  const uint32_t a_box[2] = {Op::kBK, kBM}, o_box[2] = {kEpiBox, 64};
+  // bf16: b (K, N) in boxes of 64 columns x 64 k; int8: b^T (N, K) in boxes
+  // of 128 k x 128 columns.
+  const bool kmajor = sizeof(T) == 1;
+  const uint64_t b_dims[2] = {uint64_t(kmajor ? k : n), uint64_t(kmajor ? n : k)};
+  const uint64_t b_strides[1] = {b_dims[0] * sizeof(T)};
+  const uint32_t b_box[2] = {kmajor ? uint32_t(Op::kBK) : 64u, kmajor ? uint32_t(Op::kBoxCols) : uint32_t(Op::kBK)};
+  if (!encode_map(&map_a, Op::kIn, a, 2, a_dims, a_strides, a_box) ||
+      !encode_map(&map_b, Op::kIn, b, 2, b_dims, b_strides, b_box) ||
+      !encode_map(&map_o, Op::kOut, out, 2, o_dims, o_strides, o_box))
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>());
   if (err != cudaSuccess) return err;
-  const int tiles = (m / kBM) * ((n + kBN - 1) / kBN);
+  const int tiles = (m / kBM) * ((n + Op::kBN - 1) / Op::kBN);
   const int blocks = tiles < sms ? tiles : sms;  // persistent: at most one block per SM
-  gemm_kernel<<<blocks, kThreads, kSmemBytes, s>>>(map_a, map_b, map_o, m, k, n, n_outer);
+  gemm_kernel<T><<<blocks, kThreads, smem_bytes<T>(), s>>>(map_a, map_b, map_o, m, k, n, n_outer);
   return cudaGetLastError();
 }
-
-}  // namespace bf16_wgmma
-
-namespace int8_mma {
-
-constexpr int kBM = 128, kBN = 128;        // output tile of a block
-constexpr int kWarps = 8, kThreads = kWarps * 32;
-constexpr int kWarpM = 64, kWarpN = 32;    // output tile of a warp (2 x 4 warps)
-constexpr int kStages = 3;                 // K slices in the shared-memory ring
-constexpr int kSliceBytes = 64;            // bytes of one a row in a slice
-constexpr int kTileBytes = kBM * kSliceBytes;  // 8 KiB: a's slice; b's slice is the same size
-constexpr int kBK = kSliceBytes;           // k per slice
-constexpr int kBRowBytes = kBN;            // b slice row
-constexpr int kBChunks = kBRowBytes / 16;
-
-static_assert(kWarps == (kBM / kWarpM) * (kBN / kWarpN), "warp grid covers the block tile");
-static_assert(kBK * kBRowBytes == kTileBytes, "a and b slices are the same size");
-
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma(int (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a slice: 128 rows x 4 chunks of 16 bytes. The 8 rows of an ldmatrix phase
-// (same chunk) land on 8 distinct 16-byte bank groups.
-__device__ __forceinline__ int a_off(int row, int chunk) { return row * kSliceBytes + ((chunk ^ ((row >> 1) & 3)) << 4); }
-
-// b slice: kBK rows (k) x kBChunks chunks. The phases read k rows
-// {0,1,4,5,8,9,12,13} (+2, +16, ...), hence this function of the row.
-__device__ __forceinline__ int b_off(int row, int chunk) {
-  const int swz = (row & 1) | ((row >> 1) & 6);
-  return row * kBRowBytes + ((chunk ^ swz) << 4);
-}
-
-__device__ __forceinline__ void load_slice(unsigned char* a_s, unsigned char* b_s, const unsigned char* a,
-                                           const unsigned char* b, int m0, int n0, int slice, int k, int n) {
-  for (int i = threadIdx.x; i < kBM * (kSliceBytes / 16); i += kThreads) {
-    const int row = i >> 2, chunk = i & 3;
-    const unsigned char* src = a + (long long)(m0 + row) * k + (long long)slice * kBK + chunk * 16;
-    cp_async16(smem_u32(a_s + a_off(row, chunk)), src);
-  }
-  for (int i = threadIdx.x; i < kBK * kBChunks; i += kThreads) {
-    const int row = i / kBChunks, chunk = i % kBChunks;
-    const unsigned char* src = b + (long long)(slice * kBK + row) * n + n0 + chunk * 16;
-    cp_async16(smem_u32(b_s + b_off(row, chunk)), src);
-  }
-}
-
-// b fragments of the warp's four n8 tiles for k-step `s` of a slice (k32).
-__device__ __forceinline__ void load_b(unsigned (&bf)[4][2], const unsigned char* b_s, int s, int warp_n, int lane) {
-  const int j = lane >> 3, i = lane & 7;  // the lane addresses row i of matrix j
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {  // 16 columns per ldmatrix.x4
-    unsigned r[4];
-    // matrices X0, Y0 (k 0..15), X1, Y1 (k 16..31) of 16 columns: X rows
-    // are k = 4(i/2) + i%2, Y rows the same + 2.
-    const int row = s * 32 + (j >> 1) * 16 + 4 * (i >> 1) + 2 * (j & 1) + (i & 1);
-    ldmatrix_x4_trans(r, smem_u32(b_s + b_off(row, warp_n * 2 + p)));
-    bf[2 * p][0] = __byte_perm(r[0], r[1], 0x6420);  // even columns, k 4t..4t+3
-    bf[2 * p][1] = __byte_perm(r[2], r[3], 0x6420);  // even columns, k 16+4t..
-    bf[2 * p + 1][0] = __byte_perm(r[0], r[1], 0x7531);  // odd columns
-    bf[2 * p + 1][1] = __byte_perm(r[2], r[3], 0x7531);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-mma_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b, int* __restrict__ out, int m, int k, int n,
-           int n_outer) {
-  __shared__ __align__(128) unsigned char smem[kStages][2][kTileBytes];
-
-  const int tiles_m = m / kBM, tiles_n = n / kBN;
-  const int bid = blockIdx.x;
-  const int tm = n_outer ? bid % tiles_m : bid / tiles_n;
-  const int tn = n_outer ? bid / tiles_m : bid % tiles_n;
-  const int m0 = tm * kBM, n0 = tn * kBN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warp_m = warp / (kBN / kWarpN), warp_n = warp % (kBN / kWarpN);
-  const auto* a_bytes = reinterpret_cast<const unsigned char*>(a);
-  const auto* b_bytes = reinterpret_cast<const unsigned char*>(b);
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  const int slices = k / kBK;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < slices) load_slice(smem[st][0], smem[st][1], a_bytes, b_bytes, m0, n0, st, k, n);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < slices; ++kt) {
-    cp_async_wait<kStages - 2>();  // slice kt has landed (for this thread)
-    __syncthreads();               // ... for every thread, and slice kt-1 is consumed
-    const int next = kt + kStages - 1;
-    if (next < slices) load_slice(smem[next % kStages][0], smem[next % kStages][1], a_bytes, b_bytes, m0, n0, next, k, n);
-    cp_async_commit();
-
-    const unsigned char* a_s = smem[kt % kStages][0];
-    const unsigned char* b_s = smem[kt % kStages][1];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {  // two k-steps of 32 bytes per slice
-      unsigned bf[4][2];
-      load_b(bf, b_s, s, warp_n, lane);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        unsigned af[4];
-        const int row = warp_m * kWarpM + mi * 16 + (lane & 15);
-        ldmatrix_x4(af, smem_u32(a_s + a_off(row, 2 * s + (lane >> 4))));
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af, bf[ni][0], bf[ni][1]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  const int t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const long long row = m0 + warp_m * kWarpM + mi * 16 + (lane >> 2);
-    int* o_lo = out + row * n + n0 + warp_n * kWarpN;
-    int* o_hi = o_lo + 8LL * n;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {  // columns 16p + 4t .. +3: even, odd, even, odd
-      const int* ev = acc[mi][2 * p];
-      const int* od = acc[mi][2 * p + 1];
-      *reinterpret_cast<int4*>(o_lo + p * 16 + 4 * t) = make_int4(ev[0], od[0], ev[1], od[1]);
-      *reinterpret_cast<int4*>(o_hi + p * 16 + 4 * t) = make_int4(ev[2], od[2], ev[3], od[3]);
-    }
-  }
-}
-
-cudaError_t launch(const void* a, const void* b, int* out, int m, int k, int n, int n_outer, cudaStream_t s) {
-  const int blocks = (m / kBM) * (n / kBN);
-  mma_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), out, m, k, n,
-                                         n_outer);
-  return cudaGetLastError();
-}
-
-}  // namespace int8_mma
 
 }  // namespace
 
-// a: (m, k) and b: (k, n), row-major, bf16 (int8 == 0) or int8 (int8 != 0);
+// b: (k, n) int8 row-major, b_t: (n, k) int8 row-major, k and n multiples
+// of 64, both 16-byte aligned: b_t = b^T, the K-major B operand of the int8
+// product. Returns the CUDA error of the launch.
+extern "C" int tt_transpose_s8(const void* b, void* b_t, int k, int n, void* stream) {
+  transpose_s8_kernel<<<dim3(n / 64, k / 64), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(b), static_cast<int8_t*>(b_t), k, n);
+  return cudaGetLastError();
+}
+
+// a: (m, k) row-major; for bf16 operands (int8 == 0) b is (k, n) row-major,
+// for int8 operands (int8 != 0) b is b^T, (n, k) row-major (tt_transpose_s8).
 // out: (m, n) row-major, f32 for bf16 operands, int32 for int8. m and n
 // multiples of 128, k a multiple of 64 bytes of an a row (32 bf16, 64 int8),
 // all pointers 16-byte aligned. n_outer != 0 walks the output tiles
-// N-tile-major. Returns the CUDA error of the launch (cudaErrorInvalidValue if
-// a tensor map cannot be encoded).
+// N-tile-major. Returns the CUDA error of the launch (cudaErrorInvalidValue
+// if a tensor map cannot be encoded).
 extern "C" int tt_tc_matmul(const void* a, const void* b, void* out, int m, int k, int n, int int8, int n_outer,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int8 ? int8_mma::launch(a, b, static_cast<int*>(out), m, k, n, n_outer, s)
-              : bf16_wgmma::launch(a, b, static_cast<float*>(out), m, k, n, n_outer, s);
+  return int8 ? launch<int8_t>(a, b, out, m, k, n, n_outer, s)
+              : launch<__nv_bfloat16>(a, b, out, m, k, n, n_outer, s);
 }

@@ -19,7 +19,9 @@ import torch
 from tensortruth_tpu_torch import _build
 
 _HALF = (torch.bfloat16, torch.float16)
-# csrc/tc_matmul.cu: 128x128 output tiles, K in slices of 64 bytes of an a row.
+# csrc/tc_matmul.cu: M and N in steps of 128 (tiles of 128 x 256 bf16, with
+# a half tile at N's end, or 128 x 128 int8), K in steps of 64 bytes of an a
+# row (TMA zero-fills the rest of a 128-byte slice).
 _TC_TILE = 128
 _TC_SLICE_BYTES = 64
 _TC_OUT = {torch.bfloat16: torch.float32, torch.int8: torch.int32}
@@ -49,6 +51,18 @@ def tc_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def transpose_int8_cuda(b: torch.Tensor) -> torch.Tensor:
+    """b^T of a contiguous (K, N) int8 CUDA matrix, K and N multiples of 64,
+    as a new contiguous (N, K) tensor: the K-major B operand that 8-bit wgmma
+    takes, written by the small kernel beside B5 (``tt_transpose_s8``). Part
+    of every int8 :func:`tc_matmul` launch."""
+    k, n = b.shape
+    b_t = torch.empty((n, k), dtype=torch.int8, device=b.device)
+    _build.check(_build.load().tt_transpose_s8(b.data_ptr(), b_t.data_ptr(), k, n, _build.stream_of(b)),
+                 "tc_matmul_int8 transpose")
+    return b_t
+
+
 def tc_matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, n_outer: bool = False) -> torch.Tensor:
     """Kernel B5 on the card: same contract as :func:`tc_matmul_plain`.
     Raises on any input the kernel does not take."""
@@ -73,7 +87,8 @@ def tc_matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, n_outer: bool = False) -
     int8 = a.dtype == torch.int8
     out = torch.empty((m, n), dtype=_TC_OUT[a.dtype], device=a.device)
     err = _build.load().tt_tc_matmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, int(int8), int(n_outer), _build.stream_of(a)
+        a.data_ptr(), transpose_int8_cuda(b).data_ptr() if int8 else b.data_ptr(), out.data_ptr(), m, k, n,
+        int(int8), int(n_outer), _build.stream_of(a),
     )
     _build.check(err, "tc_matmul_int8" if int8 else "tc_matmul")
     if int8:

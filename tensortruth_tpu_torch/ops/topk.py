@@ -11,10 +11,12 @@ a true top-k item is about k^2 / (2 c_out).
 ``fused_topk_int8`` is the same over ``quantize_corpus`` output: each f32
 score is multiplied by its row's f32 scale after the dot, then bucketed.
 
-Dispatch: a CUDA tensor goes to the hand-written kernel
-(``csrc/fused_topk.cu``, one template for both) or raises; only CPU tensors
-take the plain PyTorch versions, :func:`fused_candidates_plain` and
-:func:`fused_candidates_int8_plain`.
+Dispatch: a CUDA tensor goes to the hand-written kernels
+(``csrc/fused_topk.cu``) or raises; only CPU tensors take the plain PyTorch
+versions, :func:`fused_candidates_plain` and
+:func:`fused_candidates_int8_plain`. B2's wrapper schedules its persistent
+partial pass (:func:`int8_schedule`) and hands it the query with each 16
+dims reordered (:func:`permute_dims`).
 
 Ties: ``lax.top_k`` puts the lower index first and ``torch.topk`` promises no
 order, so every final selection here is a stable descending sort.
@@ -27,6 +29,7 @@ H100.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -136,27 +139,77 @@ def _bucket_candidates(
 _QB = 32  # queries per kernel block (csrc/fused_topk.cu kQB)
 _SJ = 64  # candidate slots per kernel step (kSJ)
 _MAX_D = 2048  # the block's queries are staged in shared memory
-_resident: dict[tuple[torch.device, int, bool], int] = {}
+# B2's register fragments take the 16 dims of each k-step in this order:
+# fragment k-slots {2t, 2t+1} carry dims {4t, 4t+1}, slots {2t+8, 2t+9} dims
+# {4t+2, 4t+3} (csrc/fused_topk.cu, B2's design notes).
+DIM_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
+_resident: dict[tuple[torch.device, int], int] = {}
+_int8_occupancy: dict[tuple[torch.device, int], tuple[int, int]] = {}
 
 
-def _resident_blocks(device: torch.device, d: int, quantized: bool) -> int:
-    """Partial-pass blocks ``device`` runs at once (occupancy x SMs) at
-    dimension ``d`` for a bf16 or int8 corpus, cached."""
-    key = (device, d, quantized)
+def permute_dims(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., D), D a multiple of 16, with each 16 dims in
+    :data:`DIM_ORDER`. Applied to B2's queries it matches the order in which
+    the kernel's fragments take the corpus rows' dims, so every dot product
+    keeps its terms."""
+    # dim 4t + 2h + e of each 16 goes to 8h + 2t + e: swap t and h
+    return x.unflatten(-1, (-1, 4, 2, 2)).transpose(-3, -2).reshape(x.shape)
+
+
+def _resident_blocks(device: torch.device, d: int) -> int:
+    """B1 partial-pass blocks ``device`` runs at once (occupancy x SMs) at
+    dimension ``d``, cached."""
+    key = (device, d)
     if key not in _resident:
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = _build.load().tt_fused_topk_resident_blocks(d, int(quantized), ctypes.byref(out))
+            err = _build.load().tt_fused_topk_resident_blocks(d, ctypes.byref(out))
         _build.check(err, "fused_topk occupancy")
         _resident[key] = out.value
     return _resident[key]
 
 
-def _launch_candidates(
-    q: torch.Tensor, emb: torch.Tensor, scales: torch.Tensor | None, *, tile_n: int, m: int, c_out: int,
-    n_actual: int, name: str,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Checks shared by B1 and B2, then one launch of csrc/fused_topk.cu."""
+def _int8_occupancy_of(device: torch.device, d: int) -> tuple[int, int]:
+    """(blocks ``device`` holds at once, consumer warpgroups per block) of
+    B2's persistent partial pass at dimension ``d``, cached."""
+    key = (device, d)
+    if key not in _int8_occupancy:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(device):
+            err = _build.load().tt_fused_topk_int8_occupancy(d, out)
+        _build.check(err, "fused_topk_int8 occupancy")
+        _int8_occupancy[key] = (out[0], out[1])
+    return _int8_occupancy[key]
+
+
+@functools.lru_cache(maxsize=256)
+def int8_schedule(
+    b_pad: int, c: int, n_rot: int, inner: int, m: int, resident: int, consumers: int
+) -> tuple[int, int]:
+    """(persistent blocks per 32-query block, tile ranges) for B2's partial
+    pass. Its work items are (range, candidate block, 64-slot chunk), item
+    ``(range * n_rot + rot) * chunks + chunk`` walked by worker (block x
+    consumers + warpgroup) ``item % workers``; a range is tiles
+    ``[r * inner // n_ranges, (r + 1) * inner // n_ranges)`` of each
+    candidate block. The blocks split the resident ones between the query
+    blocks; the ranges are the fewest whose busiest worker walks at most 2%
+    more steps than with the best count (every range adds a (b_pad, c_out)
+    partial). Cached: the search over range counts would otherwise cost more
+    host time than the kernel."""
+    blocks = max(1, resident // (b_pad // _QB))
+    workers = blocks * consumers
+    per_range = n_rot * (c // _SJ)
+
+    def busiest(r: int) -> int:  # items round-robin over the workers, ranges of at most ceil(inner / r) tiles
+        return -(-per_range * r // workers) * -(-inner // r) * m
+
+    least = min(busiest(r) for r in range(1, inner + 1))
+    return blocks, min(r for r in range(1, inner + 1) if busiest(r) <= least * 1.02)
+
+
+def _kernel_operands(q, emb, scales, *, tile_n, m, c_out, n_actual, name):
+    """Checks shared by B1 and B2; the query padded to whole blocks and the
+    corpus to whole tiles. Returns (q, emb, scales, geometry)."""
     if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1]:
         raise ValueError(f"{name} shapes {tuple(q.shape)} x {tuple(emb.shape)}")
     if not (q.is_contiguous() and emb.is_contiguous()):
@@ -181,22 +234,13 @@ def _launch_candidates(
             scales = torch.nn.functional.pad(scales, (0, num_tiles * tile_n - n))
     if emb.data_ptr() % 32 or q.data_ptr() % 32:
         raise ValueError(f"{name} kernel needs 32-byte aligned q and emb")
+    return q, emb, scales, (b, b_pad, d, c, c_out, n_rot, inner)
 
-    # One wave of partial-pass blocks: as many tile ranges as fit at once.
-    blocks_per_range = (c // _SJ) * n_rot * (b_pad // _QB)
-    resident = _resident_blocks(q.device, d, scales is not None)
-    n_ranges = max(1, min(inner, resident // blocks_per_range))
-    part_vals = torch.empty((n_ranges, b_pad, c_out), dtype=torch.float32, device=q.device)
-    part_idx = torch.empty((n_ranges, b_pad, c_out), dtype=torch.int32, device=q.device)
-    cand_vals = torch.empty((b_pad, c_out), dtype=torch.float32, device=q.device)
-    cand_idx = torch.empty((b_pad, c_out), dtype=torch.int32, device=q.device)
-    err = _build.load().tt_fused_topk_candidates(
-        q.data_ptr(), emb.data_ptr(), None if scales is None else scales.data_ptr(),
-        part_vals.data_ptr(), part_idx.data_ptr(), cand_vals.data_ptr(), cand_idx.data_ptr(),
-        b_pad, d, n_actual, tile_n, m, n_rot, inner, n_ranges, _build.stream_of(q),
-    )
-    _build.check(err, name)
-    return cand_vals[:b], cand_idx[:b]
+
+def _candidate_buffers(n_ranges: int, b_pad: int, c_out: int, device):
+    part = [torch.empty((n_ranges, b_pad, c_out), dtype=dt, device=device) for dt in (torch.float32, torch.int32)]
+    cand = [torch.empty((b_pad, c_out), dtype=dt, device=device) for dt in (torch.float32, torch.int32)]
+    return part, cand
 
 
 def fused_candidates_cuda(
@@ -206,9 +250,20 @@ def fused_candidates_cuda(
     Raises on any input the kernel does not take."""
     if q.dtype != torch.bfloat16 or emb.dtype != torch.bfloat16:
         raise TypeError(f"fused_topk kernel takes bfloat16 q and emb, got {q.dtype}, {emb.dtype}")
-    cand = _launch_candidates(q, emb, None, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, name="fused_topk")
+    q, emb, _, (b, b_pad, d, c, c_out, n_rot, inner) = _kernel_operands(
+        q, emb, None, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, name="fused_topk"
+    )
+    # One wave of partial-pass blocks: as many tile ranges as fit at once.
+    blocks_per_range = (c // _SJ) * n_rot * (b_pad // _QB)
+    n_ranges = max(1, min(inner, _resident_blocks(q.device, d) // blocks_per_range))
+    (part_vals, part_idx), (cand_vals, cand_idx) = _candidate_buffers(n_ranges, b_pad, c_out, q.device)
+    err = _build.load().tt_fused_topk_candidates(
+        q.data_ptr(), emb.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(), cand_vals.data_ptr(),
+        cand_idx.data_ptr(), b_pad, d, n_actual, tile_n, m, n_rot, inner, n_ranges, _build.stream_of(q),
+    )
+    _build.check(err, "fused_topk")
     fused_topk.launches += 1
-    return cand
+    return cand_vals[:b], cand_idx[:b]
 
 
 def fused_candidates_int8_cuda(
@@ -225,11 +280,20 @@ def fused_candidates_int8_cuda(
         )
     if scales.shape != (emb_q.shape[0],) or not scales.is_contiguous():
         raise ValueError(f"fused_topk_int8 kernel needs contiguous scales of shape ({emb_q.shape[0]},)")
-    cand = _launch_candidates(
+    q, emb_q, scales, (b, b_pad, d, c, c_out, n_rot, inner) = _kernel_operands(
         q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, name="fused_topk_int8"
     )
+    blocks, n_ranges = int8_schedule(b_pad, c, n_rot, inner, m, *_int8_occupancy_of(q.device, d))
+    (part_vals, part_idx), (cand_vals, cand_idx) = _candidate_buffers(n_ranges, b_pad, c_out, q.device)
+    q = permute_dims(q)
+    err = _build.load().tt_fused_topk_int8_candidates(
+        q.data_ptr(), emb_q.data_ptr(), scales.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(),
+        cand_vals.data_ptr(), cand_idx.data_ptr(), b_pad, d, n_actual, tile_n, m, n_rot, inner, n_ranges, blocks,
+        _build.stream_of(q),
+    )
+    _build.check(err, "fused_topk_int8")
     fused_topk_int8.launches += 1
-    return cand
+    return cand_vals[:b], cand_idx[:b]
 
 
 def fused_topk(

@@ -1,4 +1,4 @@
-"""Time design variants of kernels B3 and B5 (bf16) side by side on one card.
+"""Time design variants of kernels B2, B3 and B5 side by side on one card.
 
     python -m tensortruth_tpu_torch.scripts.kernel_variants [NAME ...]   # needs one CUDA card
 
@@ -6,13 +6,17 @@ Each variant is a copy of a ``csrc/`` source with some of its constants
 changed (``VARIANTS``; the first of each kernel is the source as it stands).
 All are compiled together, one ``nvcc -Xptxas -v`` each, into libraries of
 their own under ``_build/variants/``, loaded side by side with ctypes, and
-timed in turns with CUDA events in one process; the products beside
-``torch.mm(out_dtype=float32)``, the attention variants only against each
-other (``chip_smoke.py`` times the library's attention). Each build line
+timed in turns with CUDA events in one process: the products (bf16 and int8)
+beside ``torch.mm(out_dtype=float32)`` and ``torch._int_mm``, the attention
+variants and the int8 top-k (B2) variants only against each other
+(``chip_smoke.py`` times the library's attention). Each build line
 gives ptxas's registers and spills, and SERIALIZED where ptxas reports that it
 serialised the wgmmas (C75xx). Every variant's result is held against the
 kernel's plain version; none is asserted. Names on the command line pick
-variants; none picks all.
+variants; none picks all. ``NAME@DIR`` builds variant NAME from the
+``csrc/`` directory DIR of another checkout instead (a parent commit
+unpacked with ``git archive``), so two commits' kernels are timed in turns
+in one process; the int8 top-k takes only sources with today's C interface.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import math
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -29,36 +34,68 @@ from tensortruth_tpu_torch import _build
 
 VARIANTS = {  # name: (source, {text in the source: its replacement})
     "gemm": ("tc_matmul.cu", {}),
-    "gemm_epi64x1": ("tc_matmul.cu", {"kEpiCols = 32, kEpiBufs = 2;": "kEpiCols = 64, kEpiBufs = 1;"}),
-    "gemm_stages3": ("tc_matmul.cu", {"constexpr int kStages = 4;": "constexpr int kStages = 3;"}),
+    "gemm_epi64x1": ("tc_matmul.cu", {"constexpr int kEpiCols = 32;": "constexpr int kEpiCols = 64;",
+                                      "kEpiBufs = 2;  // bf16": "kEpiBufs = 1;  // bf16",
+                                      "kEpiBufs = 4;  // int8": "kEpiBufs = 2;  // int8"}),
+    "gemm_stages3": ("tc_matmul.cu", {"kStages = 4, kEpiBufs = 2;  // bf16": "kStages = 3, kEpiBufs = 2;  // bf16"}),
+    "gemm_int8_s4": ("tc_matmul.cu", {"kStages = 5, kEpiBufs = 4;  // int8": "kStages = 4, kEpiBufs = 4;  // int8"}),
+    "gemm_int8_e2": ("tc_matmul.cu", {"kStages = 5, kEpiBufs = 4;  // int8": "kStages = 5, kEpiBufs = 2;  // int8"}),
+    "topk": ("fused_topk.cu", {}),
+    "topk_stages8": ("fused_topk.cu", {"constexpr int kMaxStages = 6;": "constexpr int kMaxStages = 8;"}),
+    "topk_stages4": ("fused_topk.cu", {"constexpr int kMaxStages = 6;": "constexpr int kMaxStages = 4;"}),
+    "topk_stages2": ("fused_topk.cu", {"constexpr int kMaxStages = 6;": "constexpr int kMaxStages = 2;"}),
+    "topk_wg3": ("fused_topk.cu", {"constexpr int kConsumers = 2;": "constexpr int kConsumers = 3;"}),
+    "topk_wg1x2": ("fused_topk.cu", {"constexpr int kConsumers = 2;": "constexpr int kConsumers = 1;",
+                                     "constexpr int kMaxStages = 6;": "constexpr int kMaxStages = 5;"}),
+    "topk_i2f": ("fused_topk.cu", {  # the first design's conversion: __int2bfloat16_rn per byte
+        "l = __floats2bfloat162_rn(f0, f1), h = __floats2bfloat162_rn(f2, f3);":
+        "l = __halves2bfloat162(__int2bfloat16_rn((signed char)w), __int2bfloat16_rn((signed char)(w >> 8))),"
+        " h = __halves2bfloat162(__int2bfloat16_rn((signed char)(w >> 16)), __int2bfloat16_rn((signed char)(w >> 24)));"}),
     "attn": ("attention.cu", {}),
     "attn_stages4": ("attention.cu", {"constexpr int kStages = 3;": "constexpr int kStages = 4;"}),
     "attn_q256": ("attention.cu", {"constexpr int kBQ = 128;": "constexpr int kBQ = 256;",
                                    "constexpr int kMinBlocks = 2;": "constexpr int kMinBlocks = 1;"}),
 }
 GEMM_SHAPES = [(16384, 1024, 4096), (16384, 2048, 4096), (16384, 128, 4096)]  # (M, K, N)
+TOPK_SHAPES = [(32, 2_097_152, 1024), (32, 262_144, 1024), (64, 262_144, 2048)]  # (B, N, D), k = 100, int8 rows
 ATTN_SHAPES = [(16, 512, False), (16, 1024, False), (16, 2048, False), (16, 1024, True), (2, 16384, False)]  # B, S, dense
 
 
+def _variant(name: str) -> tuple[str, dict, Path]:
+    """(source file, substitutions, source directory) of ``name``:
+    ``NAME`` from the package's csrc, ``NAME@DIR`` from another checkout's
+    (a parent commit's, unpacked with ``git archive``), e.g. ``gemm@DIR``."""
+    base, _, where = name.partition("@")
+    src, subs = VARIANTS[base]
+    return src, subs, Path(where) if where else _build.CSRC_DIR
+
+
 def build(name: str) -> tuple[ctypes.CDLL | None, str]:
-    src, subs = VARIANTS[name]
-    out = _build.BUILD_DIR / "variants" / name
+    src, subs, csrc = _variant(name)
+    out = _build.BUILD_DIR / "variants" / name.replace("@", "_at_").replace("/", "_")
     out.mkdir(parents=True, exist_ok=True)
-    text = (_build.CSRC_DIR / src).read_text()
+    text = (csrc / src).read_text()
     for old, new in subs.items():
         if old not in text:
             raise ValueError(f"{name}: {old!r} is not in {src}")
         text = text.replace(old, new, 1)
     (out / src).write_text(text)
-    (out / "hopper.cuh").write_text((_build.CSRC_DIR / "hopper.cuh").read_text())
+    (out / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text())
     so = out / "lib.so"
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(so), str(out / src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
-    notes = [line.strip() for line in log.splitlines() if "Used" in line or "spill" in line]
-    report = f"rc={proc.returncode}; " + " | ".join(notes[-2:] if proc.returncode == 0 else log.splitlines()[:6])
-    if "C75" in log:
-        report += " SERIALIZED"
+    notes, kernel = [], "?"
+    for line in log.splitlines():  # each kernel's name, then its registers and spills
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1][:40]
+        elif "Used" in line or "spill stores" in line:
+            notes.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+    errors = [line for line in log.splitlines() if "error" in line][:12] or log.splitlines()[:12]
+    report = f"rc={proc.returncode}; " + " | ".join(notes if proc.returncode == 0 else errors)
+    if "C75" in log:  # ptxas serialised wgmmas: say why and in which kernel
+        report += " SERIALIZED: " + " | ".join(sorted({_demangle(line.split(")", 1)[-1].strip())
+                                                      for line in log.splitlines() if "C75" in line}))
     if proc.returncode != 0:
         return None, report
     lib = ctypes.CDLL(str(so))
@@ -67,6 +104,16 @@ def build(name: str) -> tuple[ctypes.CDLL | None, str]:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
     return lib, report
+
+
+def _demangle(text: str) -> str:
+    """``text`` with the quoted kernel name demangled (cu++filt, beside nvcc)."""
+    name = text.rsplit("'", 2)[-2] if text.count("'") >= 2 else ""
+    filt = Path(_build._nvcc()).parent / "cu++filt"
+    if name and filt.exists():
+        plain = subprocess.run([str(filt), name], capture_output=True, text=True).stdout.strip()
+        text = text.replace(name, plain[:120])
+    return text
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -83,10 +130,33 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def gemm(lib, a, b, n_outer=0):
     (m, k), n = a.shape, b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _build.check(lib.tt_tc_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, 0, n_outer,
+    int8 = a.dtype == torch.int8
+    out = torch.empty((m, n), dtype=torch.int32 if int8 else torch.float32, device=a.device)
+    if int8 and hasattr(lib, "tt_transpose_s8"):  # b^T, as the wrapper makes it (a source before it took b)
+        b_t = torch.empty((n, k), dtype=torch.int8, device=a.device)
+        _build.check(lib.tt_transpose_s8(b.data_ptr(), b_t.data_ptr(), k, n, _build.stream_of(b)), "transpose variant")
+        b = b_t
+    _build.check(lib.tt_tc_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, int(int8), n_outer,
                                   _build.stream_of(a)), "tc_matmul variant")
     return out
+
+
+def topk_int8(lib, q, e, scales, k):
+    """B2 through variant ``lib``, scheduled as ``ops/topk.py`` schedules it."""
+    from tensortruth_tpu_torch.ops import topk as t
+
+    n = e.shape[0]
+    q, e, scales, (b, b_pad, d, c, c_out, n_rot, inner) = t._kernel_operands(
+        q, e, scales, tile_n=2048, m=1, c_out=2048, n_actual=n, name="fused_topk_int8 variant")
+    occupancy = (ctypes.c_int * 2)()
+    _build.check(lib.tt_fused_topk_int8_occupancy(d, occupancy), "fused_topk_int8 variant occupancy")
+    blocks, n_ranges = t.int8_schedule(b_pad, c, n_rot, inner, 1, *occupancy)
+    (pv, pi), (cv, ci) = t._candidate_buffers(n_ranges, b_pad, c_out, q.device)
+    q = t.permute_dims(q)
+    _build.check(lib.tt_fused_topk_int8_candidates(
+        q.data_ptr(), e.data_ptr(), scales.data_ptr(), pv.data_ptr(), pi.data_ptr(), cv.data_ptr(), ci.data_ptr(),
+        b_pad, d, n, 2048, 1, n_rot, inner, n_ranges, blocks, _build.stream_of(q)), "fused_topk_int8 variant")
+    return t.select_topk(cv[:b], ci[:b], k, n)
 
 
 def attn(lib, q, k, v, mask):
@@ -103,19 +173,50 @@ def time_gemms(libs: dict) -> None:
     from tensortruth_tpu_torch.ops.matmul import tc_matmul_plain
     from tensortruth_tpu_torch.scripts.probe_int8_mma import make_inputs
 
-    for m, k, n in GEMM_SHAPES:
-        a, b = make_inputs(m, k, n, device="cuda")["bf16"]
+    for (m, k, n), operands in ((shape, op) for shape in GEMM_SHAPES for op in ("bf16", "int8")):
+        a, b = make_inputs(m, k, n, device="cuda")[operands]
+        if operands == "int8":
+            b_cm = b.t().contiguous().t()  # column-major: the layout torch._int_mm takes without a copy
+            library, lib_name = (lambda: torch._int_mm(a, b_cm)), "torch._int_mm (b column-major)"
+        else:
+            library, lib_name = (lambda: torch.mm(a, b, out_dtype=torch.float32)), "torch.mm"
         want = tc_matmul_plain(a, b)
-        lines = [f"GEMM M={m} K={k} N={n}: torch.mm {device_ms(lambda: torch.mm(a, b, out_dtype=torch.float32)):.4f} ms"]
+        lines = [f"GEMM {operands} M={m} K={k} N={n}: {lib_name} {device_ms(library):.4f} ms"]
         for name, lib in libs.items():
             err = max((gemm(lib, a, b, no) - want).abs().max().item() for no in (0, 1))
             t1 = device_ms(lambda: gemm(lib, a, b))
             t2 = device_ms(lambda: gemm(lib, a, b, 1))
             t3 = device_ms(lambda: gemm(lib, a, b))
             lines.append(f"{name} {min(t1, t3):.4f}/{max(t1, t3):.4f} ms (N-tile-major {t2:.4f}) max |err| {err:.2g}")
-        lines.append(f"torch.mm again {device_ms(lambda: torch.mm(a, b, out_dtype=torch.float32)):.4f} ms")
+        lines.append(f"{lib_name} again {device_ms(library):.4f} ms")
         print("\n  ".join(lines), flush=True)
         del a, b, want
+        torch.cuda.empty_cache()
+
+
+def time_topk(libs: dict) -> None:
+    """B2 variants at the int8 flat tier's shape and two smaller ones:
+    random int8 rows and scales (the kernel's time does not depend on the
+    values), each against the plain version, timed in turns."""
+    from tensortruth_tpu_torch.ops.topk import fused_topk_int8_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for b, n, d in TOPK_SHAPES:
+        q = torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16)
+        e = torch.randint(-127, 128, (n, d), generator=gen, device="cuda", dtype=torch.int8)
+        scales = torch.rand(n, generator=gen, device="cuda") / 127
+        want = fused_topk_int8_plain(q, e, scales, 100)
+        lines = [f"TOPK int8 B={b} N={n} D={d} k=100: corpus {n * d} bytes"]
+        for name, lib in libs.items():
+            vals, idx = topk_int8(lib, q, e, scales, 100)
+            err = (vals - want[0]).abs().max().item()
+            same = (idx == want[1]).float().mean().item()
+            t1 = device_ms(lambda: topk_int8(lib, q, e, scales, 100))
+            t2 = device_ms(lambda: topk_int8(lib, q, e, scales, 100))
+            lines.append(f"{name} {min(t1, t2):.4f}/{max(t1, t2):.4f} ms ({n * d / min(t1, t2) / 1e9:.3f} TB/s) "
+                         f"max |err| {err:.3g}, same index {same:.4f}")
+        print("\n  ".join(lines), flush=True)
+        del q, e, scales, want
         torch.cuda.empty_cache()
 
 
@@ -151,7 +252,7 @@ def main(argv: list[str]) -> int:
         print("kernel_variants needs a CUDA card", file=sys.stderr)
         return 1
     names = argv or list(VARIANTS)
-    unknown = set(names) - set(VARIANTS)
+    unknown = {n for n in names if n.partition("@")[0] not in VARIANTS}
     if unknown:
         print(f"unknown variants: {sorted(unknown)}; known: {list(VARIANTS)}", file=sys.stderr)
         return 2
@@ -162,10 +263,13 @@ def main(argv: list[str]) -> int:
     for name, (_, report) in built.items():
         print(f"build {name}: {report}", flush=True)
     libs = {name: lib for name, (lib, _) in built.items() if lib is not None}
-    gemms = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "tc_matmul.cu"}
-    attns = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "attention.cu"}
+    gemms = {n: lib for n, lib in libs.items() if _variant(n)[0] == "tc_matmul.cu"}
+    attns = {n: lib for n, lib in libs.items() if _variant(n)[0] == "attention.cu"}
+    topks = {n: lib for n, lib in libs.items() if _variant(n)[0] == "fused_topk.cu"}
     if gemms:
         time_gemms(gemms)
+    if topks:
+        time_topk(topks)
     if attns:
         time_attention(attns)
     return 0 if len(libs) == len(names) else 1

@@ -8,6 +8,9 @@
   products of bf16 or f32 queries with int8 rows in float32, in different
   orders, then apply one f32 scale). Integer rows with scale 1 make every
   score exact, and then the tie order must match exactly.
+* The host helpers of kernel B2: the query's dim order leaves every score
+  unchanged, and the persistent schedule covers every (range, candidate
+  block, slot chunk) once, in ascending ranges.
 * The int8 tier of ``MultiIndexEngine`` and of ``load_engine_for_modules``
   against the reference's: the same node ids after merge and balance, the
   same gate decision, and the fused query step switched off in both.
@@ -120,6 +123,88 @@ def test_scale_applies_after_the_dot():
     for _ in range(10):
         pre_scaled += np.float32(0.1)
     assert pre_scaled != 1.0
+
+
+# -- host helpers of kernel B2 ----------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [16, 80, 1024])
+def test_permute_dims_leaves_the_scores_unchanged(d):
+    """B2 takes each 16 dims of a corpus row in DIM_ORDER; the same order on
+    the query keeps every product's terms, so q . e^T is unchanged
+    (exactly, for integer values summed in float64)."""
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.integers(-3, 4, size=(5, d)).astype(np.float64))
+    e = torch.from_numpy(rng.integers(-128, 128, size=(40, d)).astype(np.float64))
+    got = port.permute_dims(q) @ port.permute_dims(e).t()
+    assert torch.equal(got, q @ e.t())
+    assert not torch.equal(port.permute_dims(q), q)
+    x = torch.arange(2 * d).view(2, d)
+    perm = port.permute_dims(x)
+    assert perm.is_contiguous() and perm.shape == x.shape
+    assert perm[1, :16].tolist() == [d + i for i in port.DIM_ORDER]
+    assert sorted(perm[0].tolist()) == list(range(d))
+    # fragment k-slots {2t, 2t+1} carry dims {4t, 4t+1}, {2t+8, 2t+9} dims {4t+2, 4t+3}
+    assert all(port.DIM_ORDER[2 * t + e] == 4 * t + e and port.DIM_ORDER[2 * t + 8 + e] == 4 * t + 2 + e
+               for t in range(4) for e in range(2))
+
+
+def _range_bounds(inner, n_ranges):
+    """Tiles [begin, end) of each range, as the kernels cut a candidate
+    block's ``inner`` tiles (``int8_schedule`` states the rule)."""
+    return [(r * inner // n_ranges, (r + 1) * inner // n_ranges) for r in range(n_ranges)]
+
+
+def _work_items(worker, workers, n_ranges, n_rot, chunks):
+    """(range, candidate block, slot chunk) of each item a B2 worker walks,
+    in its order: item (range * n_rot + rot) * chunks + chunk, every
+    ``workers``-th from ``worker`` (csrc/fused_topk.cu, int8_stream::decode)."""
+    n_items = n_ranges * n_rot * chunks
+    return [(i // (chunks * n_rot), i // chunks % n_rot, i % chunks) for i in range(worker, n_items, workers)]
+
+
+# (b_pad, c, n_rot, inner, m, resident blocks, consumers): the int8 flat
+# tier's shape, two query blocks, n_rot > 1, m > 1, one tile, few blocks.
+SCHEDULES = [
+    (32, 2048, 1, 1024, 1, 132, 2),
+    (64, 2048, 1, 147, 1, 132, 2),
+    (32, 2048, 4, 2, 1, 132, 2),
+    (96, 1024, 3, 7, 2, 132, 3),
+    (32, 2048, 1, 1, 1, 132, 2),
+    (32, 128, 1, 40, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("b_pad,c,n_rot,inner,m,resident,consumers", SCHEDULES)
+def test_int8_schedule_covers_every_item_once_in_ascending_ranges(b_pad, c, n_rot, inner, m, resident, consumers):
+    blocks, n_ranges = port.int8_schedule(b_pad, c, n_rot, inner, m, resident, consumers)
+    assert 1 <= n_ranges <= inner
+    assert 1 <= blocks and blocks * (b_pad // 32) <= max(resident, b_pad // 32)
+    bounds = _range_bounds(inner, n_ranges)
+    assert bounds[0][0] == 0 and bounds[-1][1] == inner
+    assert all(lo < hi for lo, hi in bounds) and all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    chunks = c // 64
+    workers = blocks * consumers
+    walks = [_work_items(w, workers, n_ranges, n_rot, chunks) for w in range(workers)]
+    seen = [item for walk in walks for item in walk]
+    want = {(r, rot, ch) for r in range(n_ranges) for rot in range(n_rot) for ch in range(chunks)}
+    assert len(seen) == len(want) and set(seen) == want
+    # each worker's items come in ascending range order; none walks more
+    # than one item beyond an even share
+    assert all(walk == sorted(walk) for walk in walks)
+    assert max(map(len, walks)) <= -(-len(want) // workers)
+
+
+def test_int8_schedule_balances_the_flat_tier():
+    """2,097,152 rows at B = 32 on 132 blocks of two warpgroups: the busiest
+    worker walks within 2% of an even share of the 32,768 steps."""
+    blocks, n_ranges = port.int8_schedule(32, 2048, 1, 1024, 1, 132, 2)
+    workers = blocks * 2
+    steps = [sum(hi - lo for (lo, hi) in (_range_bounds(1024, n_ranges)[r] for r, _, _ in
+                                          _work_items(w, workers, n_ranges, 1, 32)))
+             for w in range(workers)]
+    assert sum(steps) == 32 * 1024
+    assert max(steps) <= 1.02 * 32 * 1024 / workers
 
 
 # -- the engine's int8 tier ------------------------------------------------------

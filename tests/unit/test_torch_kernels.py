@@ -14,7 +14,8 @@ scores, bf16 and int8 blocks) agrees within 1e-4 with -inf exactly on the
 padding slots. Kernel B3
 (attention) agrees within 2e-2 absolute on N(0, 1) inputs: both round the
 output to bf16, and they round the softmax weights at different points.
-Kernel B5 (tensor-core product): int8 -> int32 is bit-exact; bf16 -> f32
+Kernel B5 (tensor-core product): int8 -> int32 is bit-exact, at the extremes of
+the int8 range too; bf16 -> f32
 agrees within 1e-3 absolute on N(0, 1) inputs (f32 sums of exact products in
 other orders, outputs up to about 6 * sqrt(K)).
 """
@@ -114,6 +115,10 @@ def _assert_topk_close(got, want):
         (33, 20_000, 1024, 50, 2, 2048, 20_000),  # m = 2, two query blocks
         (8, 40_960, 256, 30, 1, 8192, 40_960),   # n_rot = 4
         (3, 3000, 64, 500, 1, 2048, 300),        # k > n_actual: -inf / -1 padding
+        (2, 2048, 16, 10, 1, 2048, 2048),        # D = 16: one 16-dim k-step; a corpus of one tile
+        (5, 9000, 80, 50, 1, 2048, 8990),        # ragged D; n_actual ends inside a 64-row step
+        (33, 10_000, 2048, 40, 1, 2048, 9_999),  # the widest D; two query blocks
+        (4, 300_000, 1024, 100, 1, 2048, 299_500),  # many ranges: the persistent walk wraps
     ],
 )
 def test_fused_topk_int8_kernel_matches_plain(gen, b, n, d, k, m, c_out, n_actual):
@@ -135,6 +140,17 @@ def test_fused_topk_int8_kernel_planted_ties_exact(gen):
         want = fused_topk_int8_plain(q, e_q, scales, 80, m=m, n_actual=8900)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert fused_topk_int8.launches == before + 2
+
+
+@pytest.mark.parametrize("m,c_out", [(1, 8192), (2, 4096)])
+def test_fused_topk_int8_kernel_planted_ties_n_rot4(gen, m, c_out):
+    """Ties across candidate blocks (n_rot = 4) and segments; 33 queries."""
+    q = torch.randint(-2, 3, (33, 80), generator=gen, device="cuda").to(torch.bfloat16)
+    e_q = torch.randint(-2, 3, (3000, 80), generator=gen, device="cuda").to(torch.int8).repeat(3, 1)
+    scales = torch.ones(e_q.shape[0], device="cuda")
+    got = fused_topk_int8(q, e_q, scales, 80, m=m, c_out=c_out, n_actual=8900)
+    want = fused_topk_int8_plain(q, e_q, scales, 80, m=m, c_out=c_out, n_actual=8900)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -254,3 +270,29 @@ def test_tc_matmul_bf16_kernel_edges(gen, n_outer, m, k, n):
     torch.cuda.synchronize()
     assert got.shape == (m, n)
     assert (got - want).abs().max().item() <= MATMUL_TOL
+
+
+@pytest.mark.parametrize("n_outer", [False, True])
+@pytest.mark.parametrize(
+    "m,k,n",
+    [
+        (128, 64, 128),     # K of half a 128-byte slice (zeros past the end), one 128 x 128 tile
+        (256, 192, 640),    # a last slice of 64 bytes; N of five tiles (a bf16 half tile's width)
+        (384, 1024, 256),
+        (2048, 1024, 2304), # 288 tiles: more than one SM's worth, the persistent walk wraps
+    ],
+)
+def test_tc_matmul_int8_kernel_edges(gen, n_outer, m, k, n):
+    """Bit-exact at the int8 extremes: rows and columns of 127 and -128 make
+    sums of +-K * 2**14."""
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    a[0], a[1], b[:, 0], b[:, 1] = 127, -128, -128, 127
+    before = tc_matmul.launches_int8
+    got = tc_matmul(a, b, n_outer=n_outer)
+    want = tc_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert tc_matmul.launches_int8 == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert got[1, 0].item() == k * 128 * 128
+    assert torch.equal(got, want)

@@ -12,6 +12,7 @@ probe against the reference's (scripts/probe_int8_mxu_pallas.py), on the CPU.
   compilation-cache directory and creates it.
 * The probe's inputs are the reference's arithmetic, and the probe refuses
   to time anything but a card.
+* Every row of ``scripts/kernel_variants.py``'s table applies to its source.
 """
 
 import os
@@ -23,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+from tensortruth_tpu_torch import _build
 from tensortruth_tpu_torch.ops.matmul import tc_matmul, tc_matmul_plain
-from tensortruth_tpu_torch.scripts import probe_int8_mma
+from tensortruth_tpu_torch.scripts import kernel_variants, probe_int8_mma
 
 torch.set_num_threads(1)
 
@@ -136,3 +138,15 @@ def test_probe_inputs_are_the_reference_arithmetic():
 def test_probe_times_only_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         probe_int8_mma.run(device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
+def test_kernel_variants_apply_to_the_sources(name):
+    """Every row of the variants table changes text that its kernel's source
+    holds, once, so the table stays in step with csrc/ (the substitutions run
+    on the card only)."""
+    src, subs, csrc = kernel_variants._variant(name)
+    assert csrc == _build.CSRC_DIR
+    text = (csrc / src).read_text()
+    assert all(text.count(old) == 1 for old in subs)
+    assert kernel_variants._variant(f"{name}@/elsewhere/csrc")[2] == pathlib.Path("/elsewhere/csrc")
