@@ -15,7 +15,9 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    top-k, B2 its int8 variant, B3 attention at S = 512, 1024 and 2048
    (beside ``scaled_dot_product_attention``; the ``kernels`` line gives
    S = 1024's numbers and every S under ``by_seq``), B4 the IVF probe over bf16 and over
-   int8 blocks, B5 the tensor-core product at the int8 probe's shape, bf16
+   int8 blocks (the int8 path also bit for bit on integer rows at scale 1,
+   and its grouping of the (query, probe) pairs by cluster against the plain
+   grouping), B5 the tensor-core product at the int8 probe's shape, bf16
    and int8, both block orders (beside ``torch.mm`` and ``torch._int_mm``;
    the int8 product also beside ``torch._int_mm`` on a column-major copy of
    b, made outside the timing, and with the time of its own b^T kernel);
@@ -26,8 +28,10 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    bge-reranker-v2-m3 architectures (random weights at full width, seeded),
    answer 8 requests through ``RAGService.retrieve()`` and one through
    ``query()`` with a stub LLM, and check the answers, the placement on the
-   card, the recall of the fused top-k against the exact one, and that
-   every kernel of the path was launched during the requests;
+   card, the recall of the fused top-k against the exact one, that every
+   kernel of the path was launched during the requests, and, in a profiled
+   replay of one request, that no stream synchronise falls between the
+   rerank stage's batch launches;
 5. capacity path: one more module brings the docs to 2,097,152 rows (the
    smallest power of two above the 2M-row IVF threshold). Through
    ``load_engine`` it is served (a) as the int8 flat tier (``corpus_dtype:
@@ -35,7 +39,7 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    blocks (B4), each answering 4 ``retrieve()`` requests; (c) a
    ``MultiIndexEngine`` over the same indexes with ``corpus_dtype="int8"``
    and ``ivf_threshold=1_048_576`` takes the IVF tier over int8 blocks (B4's
-   int8 variant) and answers one 32-query batch. Each checks its placement,
+   int8 variant and its grouping kernel) and answers one 32-query batch. Each checks its placement,
    its answers, a recall or self-retrieval rate, and that its kernel was
    launched while it was driven;
 6. probe path: the int8 tensor-core probe
@@ -128,6 +132,14 @@ KERNELS = {
         "replaces": "tensortruth_tpu/ops/ivf.py:124",
     },
     "ivf_probe_int8": {
+        "route": "cuda",
+        "source": "tensortruth_tpu_torch/csrc/ivf_probe.cu",
+        "replaces": "tensortruth_tpu/ops/ivf.py:124",
+    },
+    # The first of B4's two launches over int8 blocks: the (query, probe)
+    # pairs grouped by cluster, which the TPU kernel's scalar prefetch of the
+    # cluster ids stands in for.
+    "ivf_group_probes": {
         "route": "cuda",
         "source": "tensortruth_tpu_torch/csrc/ivf_probe.cu",
         "replaces": "tensortruth_tpu/ops/ivf.py:124",
@@ -308,6 +320,32 @@ def check_fused_topk_int8(torch) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
 
 
+def check_group_probes(torch, probe, n_clusters: int) -> dict:
+    """B4's grouping kernel against its plain version: the same chunks, and
+    each cluster's pairs the same set (their order within a cluster is not
+    fixed)."""
+    from tensortruth_tpu_torch.ops.ivf import group_probes, group_probes_plain
+
+    order, chunks, n_chunks = (x.cpu() for x in group_probes(probe, n_clusters))
+    p_order, p_chunks, p_n = (x.cpu() for x in group_probes_plain(probe, n_clusters))
+    n = int(n_chunks[0])
+    check(n == int(p_n[0]) and torch.equal(chunks[:n], p_chunks[:n]), "ivf_group_probes: chunks differ")
+    for cluster in chunks[:n, 0].unique().tolist():
+        rows = chunks[:n][chunks[:n, 0] == cluster]
+        lo, hi = int(rows[0, 1]), int(rows[-1, 1] + rows[-1, 2])
+        check(set(order[lo:hi].tolist()) == set(p_order[lo:hi].tolist()), f"ivf_group_probes: cluster {cluster}")
+    # The kernel is shorter than its host call: timed queued behind a device
+    # sleep. The plain version reads the counts back to the host.
+    ms = queued_ms(torch, lambda: group_probes(probe, n_clusters))
+    plain_ms = cuda_ms(torch, lambda: group_probes_plain(probe, n_clusters))
+    # Each pair id read once; the order, the chunks and their count written once.
+    bnd = bound(nbytes(probe) + probe.numel() * 4 + n * 12 + 4, 0)
+    log(f"kernel ivf_group_probes pairs={probe.numel()} clusters={n_clusters}: {n} chunks of at most 32 pairs, "
+        f"as the plain grouping's; kernel {ms:.4f} ms on the device, plain {plain_ms:.4f} ms, "
+        f"bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']})")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
+
+
 def check_ivf_probe(torch) -> dict[str, dict]:
     """B4 over bf16 and over int8 blocks at the IVF tier's shapes, with
     padding slots in every block and probe ids shared across queries."""
@@ -342,6 +380,14 @@ def check_ivf_probe(torch) -> dict[str, dict]:
               f"{name}: -inf not exactly on the padding slots")
         err = (got[~pad] - want[~pad]).abs().max().item()
         check(err <= PROBE_TOL, f"{name}: max |err| {err} > {PROBE_TOL}")
+        exact = ""
+        if int8:  # int8 rows with integer queries at scale 1: every score exact, whatever the order of the sums
+            iq = torch.randint(-3, 4, (b, d), generator=gen, device="cuda").to(torch.bfloat16)
+            ones = torch.ones_like(scales)
+            check(torch.equal(probe_scores(probe, iq, blocks, valid, ones), probe_scores_plain(probe, iq, blocks, valid, ones)),
+                  f"{name}: integer rows at scale 1 not bit-exact")
+            exact = ", integer rows at scale 1 bit-exact"
+            out["ivf_group_probes"] = check_group_probes(torch, probe, c)
         ms, plain_ms = in_turns(
             torch, lambda: probe_scores(probe, q, blocks, valid, scales),
             lambda: probe_scores_plain(probe, q, blocks, valid, scales),
@@ -356,7 +402,7 @@ def check_ivf_probe(torch) -> dict[str, dict]:
         log(
             f"kernel {name} B={b} nprobe={nprobe} clusters={c} rpc={rpc} D={d} "
             f"{blocks.dtype} blocks ({gib(blocks.numel() * blocks.element_size())}), "
-            f"{int(pad.sum())} padding slots probed: max_abs_err={err:.3g} (tol {PROBE_TOL}); "
+            f"{int(pad.sum())} padding slots probed: max_abs_err={err:.3g} (tol {PROBE_TOL}){exact}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {probed.numel()} distinct clusters probed, "
             f"{rows} valid rows in them: bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
         )
@@ -556,8 +602,10 @@ def long_passage(tokenizer, min_tokens: int = 640) -> str:
 
 def profile_request(torch, svc, text: str) -> None:
     """Replay one request (cache cleared, shapes warm) under torch.profiler:
-    wall time against the device's kernel time, and the kernels that
-    dominate it."""
+    wall time against the device's kernel time, the kernels that dominate
+    it, and the host's stream synchronises and copies. The rerank stage
+    launches its batches (one ``aten::sigmoid`` each) without a stream
+    synchronise between them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -578,6 +626,19 @@ def profile_request(torch, svc, text: str) -> None:
     # topk_*, B3's attention_kernel) wherever they rank.
     for e in ranked[:6] + [e for e in ranked[6:] if "attention_kernel" in e.key or "topk_" in e.key]:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    events = prof.events()
+    syncs = [e for e in events if e.name == "cudaStreamSynchronize"]
+    copies = sum(e.name == "cudaMemcpyAsync" for e in events)
+    batches = sorted(e.time_range.start for e in events if e.name == "aten::sigmoid")
+    check(batches, "profiled replay: no rerank batch was launched")
+    between = [e for e in syncs if batches[0] < e.time_range.start < batches[-1]]
+    log(f"  host: {len(syncs)} cudaStreamSynchronize, {copies} cudaMemcpyAsync, "
+        f"{sum(e.name == 'cudaEventSynchronize' for e in events)} cudaEventSynchronize in the request; "
+        f"{len(batches)} rerank batches, {len(between)} stream synchronises between their launches")
+    runtime = sorted((e for e in prof.key_averages() if e.key.startswith("cuda")), key=lambda e: -e.cpu_time_total)
+    log("  host time in CUDA runtime calls: "
+        + ", ".join(f"{e.key} x{e.count} {e.cpu_time_total / 1e3:.1f} ms" for e in runtime[:6]))
+    check(not between, f"profiled replay: {len(between)} stream synchronises between the rerank batches")
 
 
 def run_main_path(torch, work: Path) -> dict:
@@ -755,7 +816,7 @@ def run_capacity_path(torch, work: Path) -> dict:
     from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
     from tensortruth_tpu_torch.index import VectorIndex
     from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
-    from tensortruth_tpu_torch.ops.ivf import ivf_search, probe_scores
+    from tensortruth_tpu_torch.ops.ivf import group_probes, ivf_search, probe_scores
     from tensortruth_tpu_torch.ops.matmul import mm_f32
     from tensortruth_tpu_torch.ops.topk import exact_topk, fused_topk_int8
     from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
@@ -857,15 +918,18 @@ def run_capacity_path(torch, work: Path) -> dict:
     check_ivf_placement(torch, r, torch.int8, embedder.dim, "(c)")
     log(f"(c) {gib(torch.cuda.memory_allocated())} allocated on the card")
     torch.cuda.synchronize()
-    probe_scores.launches_int8 = 0
+    probe_scores.launches_int8 = group_probes.launches = 0
     t = time.perf_counter()
     results = r.retrieve_batch(vecs)
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t) * 1e3
     launches["ivf_probe_int8"] = probe_scores.launches_int8
-    check(launches["ivf_probe_int8"] > 0, "(c) kernel ivf_probe_int8 was not launched on the IVF tier")
+    launches["ivf_group_probes"] = group_probes.launches
+    for name in ("ivf_probe_int8", "ivf_group_probes"):
+        check(launches[name] > 0, f"(c) kernel {name} was not launched on the IVF tier")
     check(len(results) == 32 and all(results), "(c) a query of the batch got no nodes")
-    log(f"(c) retrieve_batch of 32 queries: {batch_ms:.1f} ms; launches {launches['ivf_probe_int8']}")
+    log(f"(c) retrieve_batch of 32 queries: {batch_ms:.1f} ms; launches {launches['ivf_probe_int8']} "
+        f"(grouping {launches['ivf_group_probes']})")
     check_self_retrieval(r._ivf, rows, vecs, r.ivf_nprobe, "(c)")
     return launches
 

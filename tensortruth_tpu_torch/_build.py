@@ -40,24 +40,27 @@ build_seconds: float | None = None
 _vp, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "tt_fused_topk_candidates": [
-        _vp, _vp,                                # q, e (bf16)
-        _vp, _vp, _vp, _vp,                      # part vals/idx, cand vals/idx
-        _i32, _i32, _i64,                        # b_pad, d, n_actual
-        _i32, _i32, _i32, _i32, _i32,            # tile_n, m, n_rot, inner, n_ranges
-        _vp,                                     # stream
-    ],
-    "tt_fused_topk_resident_blocks": [_i32, ctypes.POINTER(ctypes.c_int)],  # d, out
-    "tt_fused_topk_int8_candidates": [
-        _vp, _vp, _vp,                           # q (dims permuted), e (int8), scales
+        _vp, _vp, _vp,                           # q (int8 rows: dims permuted), e, scales (null: bf16 rows)
         _vp, _vp, _vp, _vp,                      # part vals/idx, cand vals/idx
         _i32, _i32, _i64,                        # b_pad, d, n_actual
         _i32, _i32, _i32, _i32, _i32, _i32,      # tile_n, m, n_rot, inner, n_ranges, blocks
         _vp,                                     # stream
     ],
-    "tt_fused_topk_int8_occupancy": [_i32, ctypes.POINTER(ctypes.c_int)],  # d, out[2]
+    "tt_fused_topk_occupancy": [_i32, _i32, ctypes.POINTER(ctypes.c_int)],  # int8, d, out[2]
     "tt_ivf_probe_scores": [
-        _vp, _vp, _vp, _vp, _vp, _vp,            # probe, q, blocks, valid, scales (null: bf16), out
+        _vp, _vp, _vp, _vp, _vp,                 # probe, q, blocks (bf16), valid, out
         _i32, _i32, _i32, _i32,                  # b, nprobe, rpc, d
+        _vp,                                     # stream
+    ],
+    "tt_ivf_group_probes": [
+        _vp, _vp, _vp, _vp, _vp,                 # probe, scratch, order, chunks, n_chunks
+        _i32, _i32,                              # n_pairs, n_clusters
+        _vp,                                     # stream
+    ],
+    "tt_ivf_probe_scores_int8": [
+        _vp, _vp, _vp, _vp,                      # q, blocks (int8), valid, scales
+        _vp, _vp, _vp, _vp,                      # order, chunks, n_chunks, out
+        _i32, _i32, _i32, _i32,                  # nprobe, n_clusters, rpc, d
         _vp,                                     # stream
     ],
     "tt_transpose_s8": [_vp, _vp, _i32, _i32, _vp],  # b, b^T, k, n, stream

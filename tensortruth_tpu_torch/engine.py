@@ -31,6 +31,10 @@ class RAGEngine:
     params: dict = field(default_factory=dict)
     pipeline: QueryPipeline | None = None  # fused embed -> top-k step
 
+    @property
+    def similarity_top_k(self) -> int:
+        return self.retriever.similarity_top_k
+
 
 def adaptive_top_k(reranker_top_n: int) -> int:
     """Retrieve 2x the rerank target, floor 5."""

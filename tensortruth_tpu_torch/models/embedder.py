@@ -5,6 +5,11 @@ slab, sorted longest first so each device batch pads to the tightest
 (batch, seq) bucket, and every batch of a slab is launched before the
 previous slab's embeddings come back to the host in ONE device-to-host copy.
 
+Nothing here synchronises the CUDA stream: token ids go up through pinned
+staging with non-blocking copies (:func:`upload`), and each slab's
+embeddings come down into pinned memory behind a CUDA event that the host
+waits on only when it drains that slab, one slab behind the launch front.
+
 The bucket sets are the reference's, tuned on a TPU and not yet re-measured
 on the H100.
 """
@@ -25,6 +30,36 @@ def bucket(value: int, buckets: Sequence[int]) -> int:
         if value <= b:
             return b
     return buckets[-1]
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``. On a CUDA device the copy is
+    staged in pinned memory and queued without a stream synchronise (a
+    blocking host-to-device copy waits for all the work queued before it);
+    PyTorch's caching host allocator keeps the pinned block until the copy
+    has run. On the CPU it is the plain conversion."""
+    t = torch.from_numpy(x)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host_async(x: torch.Tensor):
+    """Queue the copy of ``x`` to the host and return ``wait() -> ndarray``.
+    A CUDA tensor lands in pinned memory behind an event, and ``wait`` blocks
+    on that event alone; a CPU tensor is returned as it is."""
+    if not x.is_cuda:
+        return x.numpy
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(x.device))
+
+    def wait() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+
+    return wait
 
 
 def pad_batch(ids: np.ndarray, mask: np.ndarray, sel: np.ndarray, bsz: int, seq: int, pad_id: int):
@@ -82,7 +117,7 @@ class Embedder:
 
     def to_device(self, ids_p: np.ndarray, mask_p: np.ndarray):
         dev = self.device
-        return torch.from_numpy(ids_p).to(dev), torch.from_numpy(mask_p).to(dev)
+        return upload(ids_p, dev), upload(mask_p, dev)
 
     def encode(
         self, texts: Sequence[str], is_query: bool = False, batch_size: int | None = None
@@ -96,7 +131,7 @@ class Embedder:
         max_batch = min(batch_size or self.batch_buckets[-1], self.batch_buckets[-1])
         slab = max(8 * max_batch, 2048)
         out = np.empty((len(texts), self.cfg.hidden_size), dtype=np.float32)
-        prev = None  # (global row selection, device embeddings) of the last slab
+        prev = None  # (global row selection, wait for its host embeddings) of the last slab
         with torch.inference_mode():
             for slab_start in range(0, len(texts), slab):
                 chunk = list(texts[slab_start : slab_start + slab])
@@ -112,9 +147,14 @@ class Embedder:
                     embs.append(cls_embed(self.model, *self.to_device(ids_p, mask_p))[: len(sel)])
                     sels.append(slab_start + sel)
                 # Drain one slab behind the launch front: the current slab is
-                # queued on the device while the previous one copies back.
+                # queued on the device (its copy back behind it) while the
+                # host waits for the previous one's copy alone.
+                cur = (np.concatenate(sels), to_host_async(torch.cat(embs)))
                 if prev is not None:
-                    out[prev[0]] = prev[1].cpu().numpy()
-                prev = (np.concatenate(sels), torch.cat(embs))
-            out[prev[0]] = prev[1].cpu().numpy()
+                    out[prev[0]] = prev[1]()
+                prev = cur
+            out[prev[0]] = prev[1]()
         return out
+
+    def encode_one(self, text: str, is_query: bool = True) -> np.ndarray:
+        return self.encode([text], is_query=is_query)[0]

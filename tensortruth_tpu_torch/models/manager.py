@@ -4,9 +4,13 @@ Port of ``tensortruth_tpu/models/manager.py``: a thread-safe singleton;
 identity key = (model id, dtype, max length, checkpoint dir, tokenizer,
 buckets, device), a mismatch swaps the resident model; loading resolves a
 local HF checkpoint (``discover_checkpoint`` order), else random-init weights
-at the architecture's full width. Every load names its ``device``; nothing
-moves to another device on its own. The reference's XLA compilation-cache
-helpers have no counterpart here: PyTorch runs eagerly.
+at the architecture's full width. The device takes the place of the
+reference's mesh, under the same reuse rule: ``device=None`` means "don't
+care", so a caller that names none reuses the resident model wherever it
+is (else loads on ``cuda``); a named device (``cuda`` meaning the current
+card, ``cuda:N``) must match. Nothing moves to another device on its own.
+The reference's XLA compilation-cache helpers have no counterpart here:
+PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -138,6 +142,15 @@ def _clamp_max_length(spec: ModelSpec, cfg: XLMRConfig) -> ModelSpec:
     return spec if spec.max_length <= cap else replace(spec, max_length=cap)
 
 
+def _device_of(device) -> torch.device:
+    """The device a model loads on: ``cuda`` for None, and a card with its
+    index (``cuda`` is the current one), so one card has one key."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class ModelManager:
     """Process-wide singleton: one embedder + one reranker resident at a time."""
 
@@ -243,12 +256,24 @@ class ModelManager:
         model.model_id = spec.model_id
         return model
 
-    def get_embedder(self, spec: ModelSpec | None = None, device="cuda") -> Embedder:
+    @staticmethod
+    def _key_matches(resident_key, spec: ModelSpec, device) -> bool:
+        """device=None means "don't care": callers off the engine path
+        (document uploads, web reranking) reuse the resident model rather
+        than load a second copy of it."""
+        if resident_key is None:
+            return False
+        if device is None:
+            return resident_key[:-1] == spec.key()
+        return resident_key == (*spec.key(), str(_device_of(device)))
+
+    def get_embedder(self, spec: ModelSpec | None = None, device=None) -> Embedder:
         spec = self._resolve_spec(spec or ModelSpec(DEFAULT_EMBEDDING_MODEL))
-        key = (*spec.key(), str(torch.device(device)))
         with self._lock:
-            if self._embedder is not None and self._embedder_key == key:
+            if self._embedder is not None and self._key_matches(self._embedder_key, spec, device):
                 return self._embedder
+            device = _device_of(device)
+            key = (*spec.key(), str(device))
             if self._embedder is not None:
                 logger.info("swapping embedder %s -> %s", self._embedder_key, key)
                 self._embedder = None  # release device memory before loading
@@ -256,12 +281,13 @@ class ModelManager:
             self._embedder_key = key
             return self._embedder
 
-    def get_reranker(self, spec: ModelSpec | None = None, device="cuda") -> Reranker:
+    def get_reranker(self, spec: ModelSpec | None = None, device=None) -> Reranker:
         spec = self._resolve_spec(spec or ModelSpec(DEFAULT_RERANKER_MODEL))
-        key = (*spec.key(), str(torch.device(device)))
         with self._lock:
-            if self._reranker is not None and self._reranker_key == key:
+            if self._reranker is not None and self._key_matches(self._reranker_key, spec, device):
                 return self._reranker
+            device = _device_of(device)
+            key = (*spec.key(), str(device))
             if self._reranker is not None:
                 logger.info("swapping reranker %s -> %s", self._reranker_key, key)
                 self._reranker = None
@@ -300,3 +326,11 @@ class ModelManager:
                 "reranker": entry(self._reranker, self._reranker_key),
                 "devices": devices,
             }
+
+
+def register_embedder_arch(model_id: str, cfg: XLMRConfig) -> None:
+    _EMBEDDER_ARCHS[model_id] = cfg
+
+
+def register_reranker_arch(model_id: str, cfg: XLMRConfig) -> None:
+    _RERANKER_ARCHS[model_id] = cfg

@@ -11,7 +11,8 @@ rows. The buckets and the cap are the reference's, tuned on a TPU and not
 yet re-measured on the H100.
 
 ``score_pairs_async`` keeps the two-phase contract that
-``services/batcher.py`` relies on: every batch is launched now, the scores
+``services/batcher.py`` relies on: every batch is launched now, its token
+ids uploaded without a stream synchronise (``embedder.upload``), the scores
 are concatenated on the device and copied to pinned host memory behind a
 CUDA event, and ``finish()`` waits only for that event.
 """
@@ -23,7 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tensortruth_tpu_torch.models.embedder import bucket, pad_batch
+from tensortruth_tpu_torch.models.embedder import bucket, pad_batch, to_host_async, upload
 from tensortruth_tpu_torch.models.xlmr import XLMRConfig, XLMRModel, rerank_logits
 
 
@@ -134,27 +135,16 @@ class Reranker:
                     # type 1 strictly after the first [SEP], 0 elsewhere incl. padding
                     first_sep = (ids_p == self.tokenizer.sep_id).argmax(axis=1)
                     type_p = ((np.arange(seq)[None, :] > first_sep[:, None]) & (mask_p > 0)).astype(np.int32)
-                    type_t = torch.from_numpy(type_p).to(dev)
-                logits = rerank_logits(
-                    self.model, torch.from_numpy(ids_p).to(dev), torch.from_numpy(mask_p).to(dev), type_t
-                )
+                    type_t = upload(type_p, dev)
+                logits = rerank_logits(self.model, upload(ids_p, dev), upload(mask_p, dev), type_t)
                 probs.append(torch.sigmoid(logits[: len(sel)]))
                 sels.append(sel)
-            fused = torch.cat(probs)
-            if fused.is_cuda:
-                host = torch.empty(fused.shape, dtype=torch.float32, pin_memory=True)
-                host.copy_(fused, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(fused.device))
-            else:
-                host, done = fused, None
+            wait = to_host_async(torch.cat(probs))
         order = np.concatenate(sels)
 
         def finish() -> np.ndarray:
-            if done is not None:
-                done.synchronize()
             out = np.empty((n_pairs,), dtype=np.float32)
-            out[order] = host.numpy()
+            out[order] = wait()
             return out
 
         return finish

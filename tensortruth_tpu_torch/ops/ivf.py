@@ -14,9 +14,12 @@ waits for the multi-GPU slice). Same layout and contract:
   probed positions ``probe * rpc + slot``.
 
 Dispatch: :func:`probe_scores` on CUDA tensors launches the hand-written
-kernel (``csrc/ivf_probe.cu``) or raises; CPU tensors take the plain
+kernels (``csrc/ivf_probe.cu``) or raises; CPU tensors take the plain
 version, :func:`probe_scores_plain`, which scores one probe column at a time
-like the reference's ``lax.map`` fallback.
+like the reference's ``lax.map`` fallback. Over int8 blocks the kernel first
+groups the (query, probe) pairs by cluster on the device
+(:func:`group_probes`, plain version :func:`group_probes_plain`), so that
+each probed cluster is read once for all the pairs that name it.
 
 Deliberate difference: the k-means seed rows come from a ``torch.Generator``
 seeded by ``seed`` (the reference draws them with ``jax.random.choice``), so
@@ -45,8 +48,10 @@ from tensortruth_tpu_torch.ops.topk import NEG_INF, _sorted_topk
 
 logger = logging.getLogger(__name__)
 
-PROBE_TILE = 1024  # the reference's rows per TPU grid step; the CUDA kernel tiles by 128
-_MAX_D = 8192  # the kernel stages one f32 query in shared memory
+PROBE_TILE = 1024  # the reference's rows per TPU grid step; the CUDA kernels tile by 128 and 64
+_MAX_D = 8192  # the bf16 kernel stages one f32 query in shared memory
+_MAX_D_INT8 = 2048  # the int8 kernel stages 32 bf16 queries in shared memory
+CHUNK = 32  # (query, probe) pairs per group of the int8 kernel: wgmma's N
 
 
 def host_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -85,6 +90,57 @@ def probe_scores_plain(
     return out
 
 
+def group_probes_plain(probe: torch.Tensor, n_clusters: int):
+    """Plain version of B4's grouping of the (query, probe) pairs, on any
+    device: ``(order, chunks, n_chunks)``. ``order`` (P,) int32 lists the
+    pairs ``x = b * nprobe + p`` of the flattened ``probe`` by cluster
+    (ascending; a stable sort, so pair order within a cluster); ``chunks``
+    (P, 3) int32 holds in its first ``n_chunks`` rows (cluster, first
+    position in ``order``, count) with count <= :data:`CHUNK`, each cluster's
+    pairs cut into consecutive chunks; ``n_chunks`` (1,) int32. Rows of
+    ``chunks`` past ``n_chunks`` are unspecified (here: 0)."""
+    flat = probe.reshape(-1).long()
+    n_pairs = flat.numel()
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.bincount(flat, minlength=n_clusters).cpu()
+    starts = torch.cumsum(counts, 0) - counts
+    rows = [(c, int(starts[c]) + k, min(CHUNK, int(counts[c]) - k))
+            for c in torch.nonzero(counts).flatten().tolist() for k in range(0, int(counts[c]), CHUNK)]
+    chunks = torch.zeros((n_pairs, 3), dtype=torch.int32)
+    chunks[: len(rows)] = torch.tensor(rows, dtype=torch.int32)
+    n_chunks = torch.tensor([len(rows)], dtype=torch.int32)
+    return order.to(torch.int32), chunks.to(probe.device), n_chunks.to(probe.device)
+
+
+def group_probes_cuda(probe: torch.Tensor, n_clusters: int):
+    """B4's grouping kernel on the card: same contract as
+    :func:`group_probes_plain`, but the order of the pairs within a
+    cluster is not fixed. Nothing is read back to the host."""
+    if probe.dtype != torch.int32 or not probe.is_cuda or not probe.is_contiguous():
+        raise ValueError("ivf group kernel takes a contiguous int32 probe array on a CUDA device")
+    n_pairs = probe.numel()
+    dev = probe.device
+    scratch = torch.empty(2 * n_clusters, dtype=torch.int32, device=dev)
+    order = torch.empty(n_pairs, dtype=torch.int32, device=dev)
+    chunks = torch.empty((n_pairs, 3), dtype=torch.int32, device=dev)
+    n_chunks = torch.empty(1, dtype=torch.int32, device=dev)
+    err = _build.load().tt_ivf_group_probes(
+        probe.data_ptr(), scratch.data_ptr(), order.data_ptr(), chunks.data_ptr(), n_chunks.data_ptr(),
+        n_pairs, n_clusters, _build.stream_of(probe),
+    )
+    _build.check(err, "ivf_group_probes")
+    group_probes.launches += 1
+    return order, chunks, n_chunks
+
+
+def group_probes(probe: torch.Tensor, n_clusters: int):
+    """:func:`group_probes_cuda` on a CUDA tensor, else the plain version."""
+    return (group_probes_cuda if probe.is_cuda else group_probes_plain)(probe, n_clusters)
+
+
+group_probes.launches = 0  # grouping-kernel launches (CUDA path only)
+
+
 def probe_scores_cuda(
     probe: torch.Tensor,
     q: torch.Tensor,
@@ -111,26 +167,36 @@ def probe_scores_cuda(
     b, nprobe = probe.shape
     if q.shape[1] != d or valid.shape != (n_clusters, rpc) or (quantized and scales.shape != (n_clusters, rpc)):
         raise ValueError("ivf_probe needs q (B, D), valid and scales (n_clusters, rpc) matching blocks")
-    if d % 16 or d > _MAX_D:
-        raise ValueError(f"ivf_probe kernel needs D % 16 == 0 and D <= {_MAX_D}, got {d}")
+    max_d = _MAX_D_INT8 if quantized else _MAX_D
+    if d % 16 or d > max_d:
+        raise ValueError(f"ivf_probe kernel needs D % 16 == 0 and D <= {max_d}, got {d}")
     if b > 65535 or nprobe > 65535:
         raise ValueError(f"ivf_probe kernel takes at most 65535 queries and probes, got {b}, {nprobe}")
+    if quantized and n_clusters * rpc >= 2**31:
+        raise ValueError(f"ivf_probe_int8 kernel takes fewer than 2^31 slots, got {n_clusters} x {rpc}")
     tensors = (probe, q, blocks, valid) + ((scales,) if quantized else ())
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"ivf_probe kernel needs all inputs on one CUDA device, got {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ivf_probe kernel needs contiguous inputs")
-    if blocks.data_ptr() % 16:
-        raise ValueError("ivf_probe kernel needs 16-byte aligned blocks")
+    if blocks.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("ivf_probe kernel needs 16-byte aligned q and blocks")
     out = torch.empty((b, nprobe, rpc), dtype=torch.float32, device=q.device)
-    err = _build.load().tt_ivf_probe_scores(
-        probe.data_ptr(), q.data_ptr(), blocks.data_ptr(), valid.data_ptr(),
-        scales.data_ptr() if quantized else None, out.data_ptr(), b, nprobe, rpc, d, _build.stream_of(q),
-    )
-    _build.check(err, "ivf_probe_int8" if quantized else "ivf_probe")
+    lib, stream = _build.load(), _build.stream_of(q)
     if quantized:
+        order, chunks, n_chunks = group_probes_cuda(probe, n_clusters)
+        err = lib.tt_ivf_probe_scores_int8(
+            q.data_ptr(), blocks.data_ptr(), valid.data_ptr(), scales.data_ptr(), order.data_ptr(),
+            chunks.data_ptr(), n_chunks.data_ptr(), out.data_ptr(), nprobe, n_clusters, rpc, d, stream,
+        )
+        _build.check(err, "ivf_probe_int8")
         probe_scores.launches_int8 += 1
     else:
+        err = lib.tt_ivf_probe_scores(
+            probe.data_ptr(), q.data_ptr(), blocks.data_ptr(), valid.data_ptr(), out.data_ptr(), b, nprobe, rpc, d,
+            stream,
+        )
+        _build.check(err, "ivf_probe")
         probe_scores.launches += 1
     return out
 

@@ -14,9 +14,9 @@ score is multiplied by its row's f32 scale after the dot, then bucketed.
 Dispatch: a CUDA tensor goes to the hand-written kernels
 (``csrc/fused_topk.cu``) or raises; only CPU tensors take the plain PyTorch
 versions, :func:`fused_candidates_plain` and
-:func:`fused_candidates_int8_plain`. B2's wrapper schedules its persistent
-partial pass (:func:`int8_schedule`) and hands it the query with each 16
-dims reordered (:func:`permute_dims`).
+:func:`fused_candidates_int8_plain`. Both kernels are one persistent stream
+over the corpus, scheduled by :func:`stream_schedule`; B2's wrapper also
+hands it the query with each 16 dims reordered (:func:`permute_dims`).
 
 Ties: ``lax.top_k`` puts the lower index first and ``torch.topk`` promises no
 order, so every final selection here is a stable descending sort.
@@ -141,53 +141,42 @@ _SJ = 64  # candidate slots per kernel step (kSJ)
 _MAX_D = 2048  # the block's queries are staged in shared memory
 # B2's register fragments take the 16 dims of each k-step in this order:
 # fragment k-slots {2t, 2t+1} carry dims {4t, 4t+1}, slots {2t+8, 2t+9} dims
-# {4t+2, 4t+3} (csrc/fused_topk.cu, B2's design notes).
+# {4t+2, 4t+3} (csrc/hopper.cuh, consume_int8_box).
 DIM_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
-_resident: dict[tuple[torch.device, int], int] = {}
-_int8_occupancy: dict[tuple[torch.device, int], tuple[int, int]] = {}
+_occupancy: dict[tuple[torch.device, int, bool], tuple[int, int]] = {}
 
 
 def permute_dims(x: torch.Tensor) -> torch.Tensor:
     """``x`` (..., D), D a multiple of 16, with each 16 dims in
-    :data:`DIM_ORDER`. Applied to B2's queries it matches the order in which
+    :data:`DIM_ORDER`. Applied to the queries of B2 (and of B4 over int8
+    blocks, whose kernel permutes them itself) it matches the order in which
     the kernel's fragments take the corpus rows' dims, so every dot product
     keeps its terms."""
     # dim 4t + 2h + e of each 16 goes to 8h + 2t + e: swap t and h
     return x.unflatten(-1, (-1, 4, 2, 2)).transpose(-3, -2).reshape(x.shape)
 
 
-def _resident_blocks(device: torch.device, d: int) -> int:
-    """B1 partial-pass blocks ``device`` runs at once (occupancy x SMs) at
-    dimension ``d``, cached."""
-    key = (device, d)
-    if key not in _resident:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            err = _build.load().tt_fused_topk_resident_blocks(d, ctypes.byref(out))
-        _build.check(err, "fused_topk occupancy")
-        _resident[key] = out.value
-    return _resident[key]
-
-
-def _int8_occupancy_of(device: torch.device, d: int) -> tuple[int, int]:
+def _occupancy_of(device: torch.device, d: int, int8: bool) -> tuple[int, int]:
     """(blocks ``device`` holds at once, consumer warpgroups per block) of
-    B2's persistent partial pass at dimension ``d``, cached."""
-    key = (device, d)
-    if key not in _int8_occupancy:
+    B2's (``int8``) or B1's persistent partial pass at dimension ``d``,
+    cached."""
+    key = (device, d, int8)
+    if key not in _occupancy:
         out = (ctypes.c_int * 2)()
         with torch.cuda.device(device):
-            err = _build.load().tt_fused_topk_int8_occupancy(d, out)
-        _build.check(err, "fused_topk_int8 occupancy")
-        _int8_occupancy[key] = (out[0], out[1])
-    return _int8_occupancy[key]
+            err = _build.load().tt_fused_topk_occupancy(int(int8), d, out)
+        _build.check(err, "fused_topk_int8 occupancy" if int8 else "fused_topk occupancy")
+        _occupancy[key] = (out[0], out[1])
+    return _occupancy[key]
 
 
 @functools.lru_cache(maxsize=256)
-def int8_schedule(
+def stream_schedule(
     b_pad: int, c: int, n_rot: int, inner: int, m: int, resident: int, consumers: int
 ) -> tuple[int, int]:
-    """(persistent blocks per 32-query block, tile ranges) for B2's partial
-    pass. Its work items are (range, candidate block, 64-slot chunk), item
+    """(persistent blocks per 32-query block, tile ranges) for the partial
+    pass of B1 and of B2, one kernel template. Its work items are (range,
+    candidate block, 64-slot chunk), item
     ``(range * n_rot + rot) * chunks + chunk`` walked by worker (block x
     consumers + warpgroup) ``item % workers``; a range is tiles
     ``[r * inner // n_ranges, (r + 1) * inner // n_ranges)`` of each
@@ -250,19 +239,29 @@ def fused_candidates_cuda(
     Raises on any input the kernel does not take."""
     if q.dtype != torch.bfloat16 or emb.dtype != torch.bfloat16:
         raise TypeError(f"fused_topk kernel takes bfloat16 q and emb, got {q.dtype}, {emb.dtype}")
-    q, emb, _, (b, b_pad, d, c, c_out, n_rot, inner) = _kernel_operands(
+    q, emb, _, geometry = _kernel_operands(
         q, emb, None, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, name="fused_topk"
     )
-    # One wave of partial-pass blocks: as many tile ranges as fit at once.
-    blocks_per_range = (c // _SJ) * n_rot * (b_pad // _QB)
-    n_ranges = max(1, min(inner, _resident_blocks(q.device, d) // blocks_per_range))
-    (part_vals, part_idx), (cand_vals, cand_idx) = _candidate_buffers(n_ranges, b_pad, c_out, q.device)
-    err = _build.load().tt_fused_topk_candidates(
-        q.data_ptr(), emb.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(), cand_vals.data_ptr(),
-        cand_idx.data_ptr(), b_pad, d, n_actual, tile_n, m, n_rot, inner, n_ranges, _build.stream_of(q),
-    )
-    _build.check(err, "fused_topk")
+    out = _stream_candidates(q, emb, None, geometry, tile_n=tile_n, m=m, n_actual=n_actual)
     fused_topk.launches += 1
+    return out
+
+
+def _stream_candidates(q, emb, scales, geometry, *, tile_n, m, n_actual):
+    """Launch the partial pass (B2 when ``scales`` is given, else B1) and
+    the merge; returns the (b, c_out) candidates."""
+    b, b_pad, d, c, c_out, n_rot, inner = geometry
+    int8 = scales is not None
+    blocks, n_ranges = stream_schedule(b_pad, c, n_rot, inner, m, *_occupancy_of(q.device, d, int8))
+    (part_vals, part_idx), (cand_vals, cand_idx) = _candidate_buffers(n_ranges, b_pad, c_out, q.device)
+    if int8:
+        q = permute_dims(q)
+    err = _build.load().tt_fused_topk_candidates(
+        q.data_ptr(), emb.data_ptr(), scales.data_ptr() if int8 else None, part_vals.data_ptr(),
+        part_idx.data_ptr(), cand_vals.data_ptr(), cand_idx.data_ptr(), b_pad, d, n_actual, tile_n, m, n_rot,
+        inner, n_ranges, blocks, _build.stream_of(q),
+    )
+    _build.check(err, "fused_topk_int8" if int8 else "fused_topk")
     return cand_vals[:b], cand_idx[:b]
 
 
@@ -280,20 +279,12 @@ def fused_candidates_int8_cuda(
         )
     if scales.shape != (emb_q.shape[0],) or not scales.is_contiguous():
         raise ValueError(f"fused_topk_int8 kernel needs contiguous scales of shape ({emb_q.shape[0]},)")
-    q, emb_q, scales, (b, b_pad, d, c, c_out, n_rot, inner) = _kernel_operands(
+    q, emb_q, scales, geometry = _kernel_operands(
         q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, name="fused_topk_int8"
     )
-    blocks, n_ranges = int8_schedule(b_pad, c, n_rot, inner, m, *_int8_occupancy_of(q.device, d))
-    (part_vals, part_idx), (cand_vals, cand_idx) = _candidate_buffers(n_ranges, b_pad, c_out, q.device)
-    q = permute_dims(q)
-    err = _build.load().tt_fused_topk_int8_candidates(
-        q.data_ptr(), emb_q.data_ptr(), scales.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(),
-        cand_vals.data_ptr(), cand_idx.data_ptr(), b_pad, d, n_actual, tile_n, m, n_rot, inner, n_ranges, blocks,
-        _build.stream_of(q),
-    )
-    _build.check(err, "fused_topk_int8")
+    out = _stream_candidates(q, emb_q, scales, geometry, tile_n=tile_n, m=m, n_actual=n_actual)
     fused_topk_int8.launches += 1
-    return cand_vals[:b], cand_idx[:b]
+    return out
 
 
 def fused_topk(

@@ -137,6 +137,14 @@ class RAGService:
 
     # -- engine lifecycle (reference rag_service.py:110-137) -----------------
 
+    def needs_reload(
+        self, modules: list[str], params: dict, extra_index_paths: list[str] | None = None
+    ) -> bool:
+        with self._lock:
+            return self._engine_hash != _params_hash(
+                modules, params, [str(p) for p in (extra_index_paths or [])]
+            )
+
     def _model_key(self, engine: RAGEngine) -> tuple:
         """(embedding model, reranker model or None) an engine holds resident.
 

@@ -9,8 +9,9 @@
   orders, then apply one f32 scale). Integer rows with scale 1 make every
   score exact, and then the tie order must match exactly.
 * The host helpers of kernel B2: the query's dim order leaves every score
-  unchanged, and the persistent schedule covers every (range, candidate
-  block, slot chunk) once, in ascending ranges.
+  unchanged, and the persistent schedule (shared with kernel B1, at B1's
+  shapes too) covers every (range, candidate block, slot chunk) once, in
+  ascending ranges.
 * The int8 tier of ``MultiIndexEngine`` and of ``load_engine_for_modules``
   against the reference's: the same node ids after merge and balance, the
   same gate decision, and the fused query step switched off in both.
@@ -151,20 +152,22 @@ def test_permute_dims_leaves_the_scores_unchanged(d):
 
 def _range_bounds(inner, n_ranges):
     """Tiles [begin, end) of each range, as the kernels cut a candidate
-    block's ``inner`` tiles (``int8_schedule`` states the rule)."""
+    block's ``inner`` tiles (``stream_schedule`` states the rule)."""
     return [(r * inner // n_ranges, (r + 1) * inner // n_ranges) for r in range(n_ranges)]
 
 
 def _work_items(worker, workers, n_ranges, n_rot, chunks):
-    """(range, candidate block, slot chunk) of each item a B2 worker walks,
-    in its order: item (range * n_rot + rot) * chunks + chunk, every
-    ``workers``-th from ``worker`` (csrc/fused_topk.cu, int8_stream::decode)."""
+    """(range, candidate block, slot chunk) of each item a B1 or B2 worker
+    walks, in its order: item (range * n_rot + rot) * chunks + chunk, every
+    ``workers``-th from ``worker`` (csrc/fused_topk.cu, decode)."""
     n_items = n_ranges * n_rot * chunks
     return [(i // (chunks * n_rot), i // chunks % n_rot, i % chunks) for i in range(worker, n_items, workers)]
 
 
-# (b_pad, c, n_rot, inner, m, resident blocks, consumers): the int8 flat
-# tier's shape, two query blocks, n_rot > 1, m > 1, one tile, few blocks.
+# (b_pad, c, n_rot, inner, m, resident blocks, consumers). B2: the int8 flat
+# tier's shape, two query blocks, n_rot > 1, m > 1, one tile, few blocks. B1:
+# the main path's 262,144 rows, 1,048,576 rows, 33 queries, n_rot = 4 with
+# m = 2 (the card test's planted ties).
 SCHEDULES = [
     (32, 2048, 1, 1024, 1, 132, 2),
     (64, 2048, 1, 147, 1, 132, 2),
@@ -172,12 +175,16 @@ SCHEDULES = [
     (96, 1024, 3, 7, 2, 132, 3),
     (32, 2048, 1, 1, 1, 132, 2),
     (32, 128, 1, 40, 1, 1, 1),
+    (32, 2048, 1, 128, 1, 132, 2),
+    (32, 2048, 1, 512, 1, 132, 2),
+    (64, 2048, 1, 10, 1, 132, 2),
+    (64, 1024, 4, 2, 2, 132, 2),
 ]
 
 
 @pytest.mark.parametrize("b_pad,c,n_rot,inner,m,resident,consumers", SCHEDULES)
 def test_int8_schedule_covers_every_item_once_in_ascending_ranges(b_pad, c, n_rot, inner, m, resident, consumers):
-    blocks, n_ranges = port.int8_schedule(b_pad, c, n_rot, inner, m, resident, consumers)
+    blocks, n_ranges = port.stream_schedule(b_pad, c, n_rot, inner, m, resident, consumers)
     assert 1 <= n_ranges <= inner
     assert 1 <= blocks and blocks * (b_pad // 32) <= max(resident, b_pad // 32)
     bounds = _range_bounds(inner, n_ranges)
@@ -198,13 +205,26 @@ def test_int8_schedule_covers_every_item_once_in_ascending_ranges(b_pad, c, n_ro
 def test_int8_schedule_balances_the_flat_tier():
     """2,097,152 rows at B = 32 on 132 blocks of two warpgroups: the busiest
     worker walks within 2% of an even share of the 32,768 steps."""
-    blocks, n_ranges = port.int8_schedule(32, 2048, 1, 1024, 1, 132, 2)
+    blocks, n_ranges = port.stream_schedule(32, 2048, 1, 1024, 1, 132, 2)
     workers = blocks * 2
     steps = [sum(hi - lo for (lo, hi) in (_range_bounds(1024, n_ranges)[r] for r, _, _ in
                                           _work_items(w, workers, n_ranges, 1, 32)))
              for w in range(workers)]
     assert sum(steps) == 32 * 1024
     assert max(steps) <= 1.02 * 32 * 1024 / workers
+
+
+def test_stream_schedule_balances_the_main_path():
+    """B1 over the main path's 262,144 rows (128 tiles) at B = 32 on 132
+    blocks of two warpgroups: the busiest worker walks 16 steps, against an
+    even share of 15.5 of the 4,096."""
+    blocks, n_ranges = port.stream_schedule(32, 2048, 1, 128, 1, 132, 2)
+    workers = blocks * 2
+    steps = [sum(hi - lo for (lo, hi) in (_range_bounds(128, n_ranges)[r] for r, _, _ in
+                                          _work_items(w, workers, n_ranges, 1, 32)))
+             for w in range(workers)]
+    assert sum(steps) == 32 * 128
+    assert max(steps) == 16
 
 
 # -- the engine's int8 tier ------------------------------------------------------

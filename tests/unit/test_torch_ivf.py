@@ -6,6 +6,10 @@ reference's (tensortruth_tpu/ops/ivf.py), on the CPU.
   in interpret mode, bf16 and int8 blocks: within 1e-5, -inf exactly where
   a slot is padding. The port's device search against the reference's
   gather fallback: identical positions, scores within 1e-5.
+* ``group_probes_plain``, the plain version of B4's grouping of the
+  (query, probe) pairs over int8 blocks: every pair once, by cluster, in
+  chunks of at most 32 pairs of one cluster. The reference has no such step
+  (its grid walks the pairs one by one).
 * The build steps: ``_sample_rows`` and ``_place_rows`` bit-equal,
   ``_assign_top2`` equal in float32, ``_kmeans_fit`` from the reference's
   own seed rows within 1e-5 with the same assignments, and the whole
@@ -323,3 +327,30 @@ def test_load_engine_ivf_tier_matches_reference(env, monkeypatch, corpus_dtype):
         np.testing.assert_allclose([s.score for s in got.sources], [s.score for s in want.sources], atol=1e-5)
         assert got.confidence == want.confidence
         assert "topk_merge" in got.metrics["timings"]
+
+
+@pytest.mark.parametrize("b,nprobe,n_clusters", [(1, 1, 2), (32, 32, 1024), (40, 4, 16), (7, 9, 3)])
+def test_group_probes_plain_contract(b, nprobe, n_clusters):
+    """Every pair once; chunks of 1..32 pairs, each of one cluster, clusters
+    ascending and each cluster's chunks consecutive and full but its last;
+    a query may name a cluster twice, and one cluster is named by every
+    query (more than 32 pairs at b = 40 and b = 32 x 32)."""
+    rng = np.random.default_rng(b)
+    probe = torch.from_numpy(rng.integers(0, n_clusters, (b, nprobe)).astype(np.int32))
+    probe[:, 0] = probe[0, 0]
+    if nprobe > 1:
+        probe[0, 1] = probe[0, 0]
+    order, chunks, n_chunks = port.group_probes(probe, n_clusters)
+    flat, n = probe.reshape(-1), int(n_chunks[0])
+    assert order.dtype == chunks.dtype == torch.int32 and chunks.shape == (b * nprobe, 3)
+    assert sorted(order.tolist()) == list(range(b * nprobe))
+    rows = chunks[:n].tolist()
+    assert [start for _, start, _ in rows] == np.cumsum([0] + [cnt for _, _, cnt in rows[:-1]]).tolist()
+    assert sum(cnt for _, _, cnt in rows) == b * nprobe and all(1 <= cnt <= port.CHUNK for _, _, cnt in rows)
+    for i, (cluster, start, cnt) in enumerate(rows):
+        pairs = order[start : start + cnt].long()
+        assert (flat[pairs] == cluster).all() and pairs.tolist() == sorted(pairs.tolist())
+        if i + 1 < n and rows[i + 1][0] == cluster:
+            assert cnt == port.CHUNK
+    assert [c for c, _, _ in rows] == sorted(c for c, _, _ in rows)
+    assert {c for c, _, _ in rows} == set(flat.tolist())

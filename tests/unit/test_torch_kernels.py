@@ -11,20 +11,34 @@ f32 row scale), so values agree within 1e-4 and indices may differ only where
 the two scores at that rank are within it; integer-valued inputs make every
 score exact and then the results must be identical. Kernel B4 (IVF probe
 scores, bf16 and int8 blocks) agrees within 1e-4 with -inf exactly on the
-padding slots. Kernel B3
+padding slots, and bit for bit on integer-valued rows at scale 1; its
+grouping of the (query, probe) pairs over int8 blocks matches the plain
+grouping up to the order of the pairs within a cluster. Kernel B3
 (attention) agrees within 2e-2 absolute on N(0, 1) inputs: both round the
 output to bf16, and they round the softmax weights at different points.
 Kernel B5 (tensor-core product): int8 -> int32 is bit-exact, at the extremes of
 the int8 range too; bf16 -> f32
 agrees within 1e-3 absolute on N(0, 1) inputs (f32 sums of exact products in
 other orders, outputs up to about 6 * sqrt(K)).
+
+The last tests hold the embedder and the reranker on the card to their
+promise of no stream synchronise between the batches they launch.
 """
 
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from tensortruth_tpu_torch.models.embedder import Embedder
+from tensortruth_tpu_torch.models.manager import _EMBEDDER_ARCHS, _RERANKER_ARCHS
+from tensortruth_tpu_torch.models.reranker import Reranker
 from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention, blocked_attention_cuda
-from tensortruth_tpu_torch.ops.ivf import probe_scores, probe_scores_plain
+from tensortruth_tpu_torch.ops.ivf import (
+    group_probes,
+    group_probes_plain,
+    probe_scores,
+    probe_scores_plain,
+)
 from tensortruth_tpu_torch.ops.matmul import tc_matmul, tc_matmul_plain
 from tensortruth_tpu_torch.ops.topk import (
     fused_topk,
@@ -32,6 +46,7 @@ from tensortruth_tpu_torch.ops.topk import (
     fused_topk_int8_plain,
     fused_topk_plain,
 )
+from tensortruth_tpu_torch.tokenization import SimpleTokenizer
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -82,6 +97,17 @@ def test_fused_topk_kernel_planted_ties_exact(gen):
         got = fused_topk(q, e, 80, m=m, n_actual=8900)
         want = fused_topk_plain(q, e, 80, m=m, n_actual=8900)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,c_out", [(1, 8192), (2, 4096)])
+def test_fused_topk_kernel_planted_ties_n_rot4(gen, m, c_out):
+    """Ties across candidate blocks (n_rot = 4) and segments; 33 queries; a
+    D of one and a quarter 64-dim boxes."""
+    q = torch.randint(-2, 3, (33, 80), generator=gen, device="cuda").to(torch.bfloat16)
+    e = torch.randint(-2, 3, (3000, 80), generator=gen, device="cuda").to(torch.bfloat16).repeat(3, 1)
+    got = fused_topk(q, e, 80, m=m, c_out=c_out, n_actual=8900)
+    want = fused_topk_plain(q, e, 80, m=m, c_out=c_out, n_actual=8900)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_fused_topk_counts_launches(gen):
@@ -174,6 +200,68 @@ def test_probe_kernel_matches_plain(gen, int8, b, nprobe, n_clusters, rpc, d):
     pad = valid[probe.long()] == 0
     assert torch.isneginf(got[pad]).all() and torch.isfinite(got[~pad]).all()
     assert (got[~pad] - want[~pad]).abs().max().item() <= TOPK_TOL
+
+
+def _probe_case(gen, case):
+    """(probe, q, blocks, valid, scales) of an int8-block probe case."""
+    b, nprobe, n_clusters, rpc, d = {"over32": (40, 4, 16, 256, 128), "rpc_ragged": (6, 5, 9, 200, 80),
+                                     "integer": (32, 8, 40, 320, 1024)}.get(case, (8, 6, 12, 256, 64))
+    if case == "integer":  # every score exact in f32, whatever the order of the sums
+        q = torch.randint(-3, 4, (b, d), generator=gen, device="cuda").to(torch.bfloat16)
+        blocks = torch.randint(-127, 128, (n_clusters, rpc, d), generator=gen, device="cuda", dtype=torch.int8)
+        scales = torch.ones((n_clusters, rpc), device="cuda")
+    else:
+        q = _unit(gen, b, d)
+        blocks, scales = _int8_rows(gen, n_clusters * rpc, d)
+        blocks, scales = blocks.view(n_clusters, rpc, d), scales.view(n_clusters, rpc)
+    valid = (torch.rand((n_clusters, rpc), generator=gen, device="cuda") > 0.3).to(torch.int32)
+    probe = torch.randint(0, n_clusters, (b, nprobe), generator=gen, device="cuda", dtype=torch.int32)
+    if case == "twice":  # one query names a cluster twice, another three times
+        probe[0, 1] = probe[0, 0]
+        probe[3, 1:4] = probe[3, 0]
+    elif case == "over32":  # one cluster named by 80 pairs: three chunks
+        probe[:, 0] = probe[:, 2] = 5
+    elif case == "all_invalid":
+        valid[probe[0, 0].long()] = 0
+        valid[probe[2, 3].long(), :64] = 0  # and a whole first step of another
+    elif case == "prefix":  # build_ivf fills slots from 0: empty, part-filled and full clusters
+        fill = torch.randint(0, rpc + 1, (n_clusters, 1), generator=gen, device="cuda")
+        fill[0], fill[1] = 0, rpc
+        probe[0, :2] = torch.tensor([0, 1], device="cuda", dtype=torch.int32)
+        valid = (torch.arange(rpc, device="cuda")[None, :] < fill).to(torch.int32)
+    return probe, q, blocks, valid, scales
+
+
+@pytest.mark.parametrize("case", ["twice", "over32", "all_invalid", "prefix", "rpc_ragged", "integer"])
+def test_probe_int8_kernel_cases(gen, case):
+    probe, q, blocks, valid, scales = _probe_case(gen, case)
+    before = probe_scores.launches_int8
+    got = probe_scores(probe, q, blocks, valid, scales)
+    want = probe_scores_plain(probe, q, blocks, valid, scales)
+    torch.cuda.synchronize()
+    assert probe_scores.launches_int8 == before + 1
+    pad = valid[probe.long()] == 0
+    assert torch.equal(torch.isneginf(got), pad) and torch.isfinite(got[~pad]).all()
+    if case == "integer":
+        assert torch.equal(got, want)
+    else:
+        assert (got[~pad] - want[~pad]).abs().max().item() <= TOPK_TOL
+
+
+@pytest.mark.parametrize("b,nprobe,n_clusters", [(1, 1, 2), (32, 32, 1024), (40, 4, 16), (7, 9, 3000)])
+def test_group_probes_kernel_matches_plain(gen, b, nprobe, n_clusters):
+    """The chunks are the plain grouping's exactly; the pairs of each cluster
+    are the same set (their order within a cluster is not fixed)."""
+    probe = torch.randint(0, n_clusters, (b, nprobe), generator=gen, device="cuda", dtype=torch.int32)
+    probe[:, 0] = probe[0, 0].item()
+    order, chunks, n_chunks = (x.cpu() for x in group_probes(probe, n_clusters))
+    p_order, p_chunks, p_n = (x.cpu() for x in group_probes_plain(probe, n_clusters))
+    n = int(n_chunks[0])
+    assert n == int(p_n[0]) and torch.equal(chunks[:n], p_chunks[:n])
+    for cluster in chunks[:n, 0].unique().tolist():
+        rows = chunks[:n][chunks[:n, 0] == cluster]
+        lo, hi = int(rows[0, 1]), int(rows[-1, 1] + rows[-1, 2])
+        assert set(order[lo:hi].tolist()) == set(p_order[lo:hi].tolist())
 
 
 @pytest.mark.parametrize("b,nh,s", [(2, 3, 256), (3, 16, 512), (1, 2, 2048)])
@@ -296,3 +384,42 @@ def test_tc_matmul_int8_kernel_edges(gen, n_outer, m, k, n):
     assert got.dtype == torch.int32 and got.shape == (m, n)
     assert got[1, 0].item() == k * 128 * 128
     assert torch.equal(got, want)
+
+
+def _syncs(prof, names=("cudaStreamSynchronize",)) -> int:
+    return sum(e.name in names for e in prof.events())
+
+
+def test_reranker_launches_its_groups_without_a_stream_sync(gen):
+    """Four groups (two sequence buckets, each cut into two batch buckets):
+    score_pairs_async queues them all without a cudaStreamSynchronize, and
+    its scores match those of a call that waited."""
+    tok = SimpleTokenizer(vocab_size=512)
+    reranker = Reranker.random_init(_RERANKER_ARCHS["tiny-reranker"], tok, "cuda", dtype=torch.float32,
+                                    max_length=128)
+    pairs = [(f"question {i}", f"short passage {i}") for i in range(130)]
+    pairs += [(f"question {i}", " ".join(f"word{j}" for j in range(90))) for i in range(20)]
+    lengths = tok.encode_batch([q for q, _ in pairs], 128, pair=[d for _, d in pairs])[1].sum(axis=1)
+    assert len(reranker._groups(lengths)) >= 3
+    want = reranker.score_pairs(pairs)  # warm: the pinned blocks and the kernels exist
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        finish = reranker.score_pairs_async(pairs)
+    got = finish()
+    assert _syncs(prof) == 0
+    assert (got == want).all()
+
+
+def test_embedder_waits_once_per_slab(gen):
+    """Two slabs of 2048 texts at most: no stream synchronise, and the host
+    waits on one event a slab (the profiler's own device synchronise as it
+    stops is not counted)."""
+    tok = SimpleTokenizer(vocab_size=512)
+    embedder = Embedder.random_init(_EMBEDDER_ARCHS["tiny-embedder"], tok, "cuda", dtype=torch.float32,
+                                    max_length=128)
+    texts = [f"text {i} " + "word " * (i % 50) for i in range(2100)]
+    want = embedder.encode(texts)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = embedder.encode(texts)
+    assert _syncs(prof) == 0
+    assert _syncs(prof, ("cudaStreamSynchronize", "cudaEventSynchronize")) <= 2
+    assert got.shape == (2100, 64) and (got == want).all()

@@ -143,10 +143,12 @@ def test_probe_times_only_a_card():
 @pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
 def test_kernel_variants_apply_to_the_sources(name):
     """Every row of the variants table changes text that its kernel's source
-    holds, once, so the table stays in step with csrc/ (the substitutions run
-    on the card only)."""
+    or hopper.cuh holds, once in the two, so the table stays in step with
+    csrc/ (the variants are built on the card only)."""
     src, subs, csrc = kernel_variants._variant(name)
     assert csrc == _build.CSRC_DIR
-    text = (csrc / src).read_text()
-    assert all(text.count(old) == 1 for old in subs)
+    texts = [(csrc / f).read_text() for f in (src, "hopper.cuh")]
+    assert all(sum(text.count(old) for text in texts) == 1 for old in subs)
+    changed = kernel_variants.sources(name)
+    assert ([changed[src], changed["hopper.cuh"]] != texts) == bool(subs)
     assert kernel_variants._variant(f"{name}@/elsewhere/csrc")[2] == pathlib.Path("/elsewhere/csrc")
