@@ -1,11 +1,11 @@
-"""Drive the PyTorch/CUDA port's online query path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's index build and online query path once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
 Phases, each of which raises (exit code 1, no result line) when it fails:
 
 1. card: the card's name and power limit, as nvidia-smi reports them;
-2. build: compile the hand-written kernels (``tensortruth_tpu_torch/csrc``)
+2. kernel build: compile the hand-written kernels (``tensortruth_tpu_torch/csrc``)
    with nvcc into ``tensortruth_tpu_torch/_build/``;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with the tolerance stated below, and both
@@ -21,18 +21,36 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    and int8, both block orders (beside ``torch.mm`` and ``torch._int_mm``;
    the int8 product also beside ``torch._int_mm`` on a column-major copy of
    b, made outside the timing, and with the time of its own b^T kernel);
-4. main path: write a two-module index (this repository's own docs, chunked
-   and embedded by the port, plus a synthetic module that brings the
-   stacked corpus to 262,144 leaf rows), load it with the port's
+4. build path: lay out a ``sources.json`` and ``library_docs/`` with three
+   library modules and build each through the port's own CLI,
+   ``build_db.main`` (the embedder the CLI loads: BGE-M3 at full width on
+   the card): ``corpus``, 192 synthetic docs of 11,000 words (the port's
+   ``scripts/measure_build.py`` generator, about 13,800 leaves), and
+   ``docs``, this repository's docs, both hierarchical; ``docs_semantic``,
+   the same docs under ``--chunking-strategy semantic``, whose leaves are
+   whole sections of up to 2048 tokens: kernel B3 must be launched while it
+   builds. Each build prints its seconds per stage, chunks/s, leaves by seq
+   bucket and peak device memory. The indexes must carry their metadata and
+   unit-norm f32 rows; B3 is held against its plain version on the mask of
+   every forward that took it (batch and sequence buckets as the build
+   padded them, fully padded rows included); ``docs_semantic`` (beside
+   ``corpus``) answers 2 ``retrieve()`` requests; then
+   ``scripts/measure_build.py`` times the embed loop alone over 2048 leaves
+   of 248 words, and chunking (native and Python tokenizer) + embedding of
+   48 docs of 11,000 words;
+5. main path: a two-module index (the ``docs`` index the build path wrote,
+   whose nodes must match the chunker's by span, plus a synthetic module that
+   brings the stacked corpus to 262,144 leaf rows), loaded with the port's
    ``load_engine_for_modules`` under the default BGE-M3 /
    bge-reranker-v2-m3 architectures (random weights at full width, seeded),
-   answer 8 requests through ``RAGService.retrieve()`` and one through
-   ``query()`` with a stub LLM, and check the answers, the placement on the
+   answers 8 requests through ``RAGService.retrieve()`` and one through
+   ``query()`` with a stub LLM; the answers, the placement on the
    card, the recall of the fused top-k against the exact one, that every
-   kernel of the path was launched during the requests, and, in a profiled
-   replay of one request, that no stream synchronise falls between the
-   rerank stage's batch launches;
-5. capacity path: one more module brings the docs to 2,097,152 rows (the
+   kernel of the path was launched during the requests, B3 against its
+   plain version on the mask of every forward that took it, and, in a
+   profiled replay of one request, that no stream synchronise falls between
+   the rerank stage's batch launches are checked;
+6. capacity path: one more module brings the docs to 2,097,152 rows (the
    smallest power of two above the 2M-row IVF threshold). Through
    ``load_engine`` it is served (a) as the int8 flat tier (``corpus_dtype:
    int8``: kernel B2) and (b) with default params as the IVF tier over bf16
@@ -42,7 +60,7 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    int8 variant and its grouping kernel) and answers one 32-query batch. Each checks its placement,
    its answers, a recall or self-retrieval rate, and that its kernel was
    launched while it was driven;
-6. probe path: the int8 tensor-core probe
+7. probe path: the int8 tensor-core probe
    (``tensortruth_tpu_torch.scripts.probe_int8_mma.run()``) times B5's four
    variants at M=16384, K=1024, N=4096 and applies the reference's decision
    rule; B5 must have been launched, bf16 and int8, while it ran.
@@ -56,13 +74,16 @@ inside the checkout that is removed at exit.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
 import subprocess
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -75,7 +96,10 @@ SEED = 0
 TOPK_TOL = 1e-4
 # Kernel B3 vs its plain version: the kernel rounds the unnormalised softmax
 # weights to bf16 and the plain version the normalised ones, and both round
-# the output to bf16 (ulp 2^-8 below 1.0). Inputs are N(0, 1).
+# the output to bf16, whose step grows with the value (2^-8 below 1.0, 2^-5
+# from 4 to 8). Inputs are N(0, 1): a row with many real keys averages V to
+# below 1, a row with a few (short leaves on the build path) comes close to
+# one row of V, up to about 5. Each output is held to ATTN_TOL x max(1, |plain|).
 ATTN_TOL = 2e-2
 # Kernel B4 vs its plain version: both sum exact bf16 products in f32, in
 # different orders (B4's int8 variant then applies one f32 scale); padding
@@ -412,6 +436,12 @@ def check_ivf_probe(torch) -> dict[str, dict]:
     return out
 
 
+def attention_err(out, ref) -> tuple[float, float]:
+    """(max |out - ref|, max |out - ref| / max(1, |ref|)) over all outputs."""
+    diff = (out.float() - ref.float()).abs()
+    return diff.max().item(), (diff / ref.float().abs().clamp(min=1.0)).max().item()
+
+
 def check_attention(torch) -> dict:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -431,9 +461,9 @@ def check_attention(torch) -> dict:
         out = blocked_attention(q, k, v, mask)
         ref = attention_reference(q, k, v, mask)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
+        err, scaled = attention_err(out, ref)
         check(torch.isfinite(out.float()).all().item(), f"blocked_attention S={s}: non-finite output")
-        check(err <= ATTN_TOL, f"blocked_attention S={s}: max |err| {err} > {ATTN_TOL}")
+        check(scaled <= ATTN_TOL, f"blocked_attention S={s}: max |err| / max(1, |plain|) {scaled} > {ATTN_TOL}")
         uniform = v[3].float().mean(dim=1, keepdim=True).expand(nh, s, dh)
         pad_err = (out[3].float() - uniform).abs().max().item()
         check(pad_err <= ATTN_TOL, f"blocked_attention S={s}: padded row is not the mean of V ({pad_err})")
@@ -449,19 +479,85 @@ def check_attention(torch) -> dict:
         keys = int(torch.where(lengths > 0, lengths, s).sum())
         bnd = bound(nbytes(q, out, mask) + nbytes(k, v) * keys // (b * s), 4 * nh * s * dh * keys)
         log(
-            f"kernel blocked_attention B={b} NH={nh} S={s} DH={dh} bf16: max_abs_err={err:.3g} "
-            f"(tol {ATTN_TOL}), padded-row err={pad_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"kernel blocked_attention B={b} NH={nh} S={s} DH={dh} bf16: max_abs_err={err:.3g}, over "
+            f"max(1, |plain|) {scaled:.3g} (tol {ATTN_TOL}), padded-row err={pad_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, {keys} of {b * s} keys real), "
             f"scaled_dot_product_attention {library_ms:.4f} ms (max |err| {lib_err:.3g}, not asserted)"
         )
         worst = max(worst, err)
-        timing[s] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms}
+        timing[s] = {"max_abs_err": err, "max_scaled_err": scaled, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms}
         del q, k, v, out, ref, bias
         torch.cuda.empty_cache()
     # The top-level numbers are S=1024's, the bucket the main path's long
     # request lands in; every S measured is under "by_seq".
-    top = {key: val for key, val in timing[1024].items() if key != "max_abs_err"}
+    top = {key: val for key, val in timing[1024].items() if key not in ("max_abs_err", "max_scaled_err")}
     return {"max_abs_err": worst, **top, "by_seq": {str(s): t for s, t in timing.items()}}
+
+
+@contextmanager
+def b3_forwards():
+    """(model config, mask) of every encoder forward that takes kernel B3
+    while the block runs: ``models/xlmr.py::encoder_forward``, which every
+    embed and rerank forward goes through, is wrapped."""
+    from tensortruth_tpu_torch.models import xlmr
+
+    forwards = []
+    forward = xlmr.encoder_forward
+
+    def recorded(model, ids, mask, type_ids=None):
+        if xlmr.use_flash(model.cfg, mask.shape[1], mask.device):
+            forwards.append((model.cfg, mask))
+        return forward(model, ids, mask, type_ids=type_ids)
+
+    xlmr.encoder_forward = recorded
+    try:
+        yield forwards
+    finally:
+        xlmr.encoder_forward = forward
+
+
+def check_attention_on_path(torch, path: str, forwards) -> list[dict]:
+    """B3 against its plain version on each mask a path gave it (the padded
+    rows and lengths of that forward), with random q, k, v laid out as the
+    encoder's (B, NH, S, DH) views of a (B, S, H) projection. The plain
+    version runs 16 rows at a time (rows are independent) to bound its
+    (B, NH, S, S) f32 scores; each (B, S) is timed once."""
+    from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    shapes = {}
+    for cfg, mask in forwards:
+        (b, s), nh, dh = mask.shape, cfg.num_heads, cfg.head_dim
+        q, k, v = (
+            torch.randn((b, s, nh * dh), generator=gen, device="cuda").to(torch.bfloat16)
+            .view(b, s, nh, dh).transpose(1, 2)
+            for _ in range(3)
+        )
+        out = blocked_attention(q, k, v, mask)
+        check(torch.isfinite(out.float()).all().item(), f"blocked_attention on the {path} path B={b} S={s}: non-finite")
+        errs = [attention_err(out[i : i + 16], attention_reference(*(t[i : i + 16] for t in (q, k, v, mask))))
+                for i in range(0, b, 16)]
+        err, scaled = max(e for e, _ in errs), max(e for _, e in errs)
+        check(scaled <= ATTN_TOL,
+              f"blocked_attention on the {path} path B={b} S={s}: max |err| / max(1, |plain|) {scaled} > {ATTN_TOL}")
+        entry = shapes.setdefault((b, s), {"b": b, "nh": nh, "s": s, "dh": dh, "forwards": 0,
+                                           "max_abs_err": 0.0, "max_scaled_err": 0.0})
+        entry["forwards"] += 1
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["max_scaled_err"] = max(entry["max_scaled_err"], scaled)
+        if "ms" not in entry:
+            lengths = mask.sum(dim=1)
+            keys = int(torch.where(lengths > 0, lengths, s).sum())
+            entry["rows_real"] = int((lengths > 0).sum())
+            entry["ms"] = cuda_ms(torch, lambda: blocked_attention(q, k, v, mask))
+            entry.update(bound(nbytes(q, out, mask) + nbytes(k, v) * keys // (b * s), 4 * nh * s * dh * keys))
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    for e in shapes.values():
+        log(f"kernel blocked_attention on the {path} path B={e['b']} NH={e['nh']} S={e['s']} DH={e['dh']} ({e['forwards']} "
+            f"forwards, {e['rows_real']} of {e['b']} rows real in the first): max_abs_err={e['max_abs_err']:.3g}, "
+            f"over max(1, |plain|) {e['max_scaled_err']:.3g} (tol {ATTN_TOL}); kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+    return list(shapes.values())
 
 
 def check_tc_matmul(torch) -> dict[str, dict]:
@@ -521,18 +617,275 @@ def check_tc_matmul(torch) -> dict[str, dict]:
     return out
 
 
-# -- phase 4: the main path --------------------------------------------------
+# -- phase 4: the build path -------------------------------------------------
+
+# The ``corpus`` module: measure_build.py's docs (measure_e2e_build.py's
+# generator) from SEED, 192 docs of 11,000 words, about 2.1M words: the size of
+# one large library's documentation.
+BUILD_DOCS = 192
+BUILD_MODULES = ("corpus", "docs", "docs_semantic")
+SEMANTIC_QUESTIONS = [
+    "How does the engine merge leaf chunks into their parents?",
+    "How are documents chunked into a hierarchy before indexing?",
+]
+
+
+def docs_files() -> list[Path]:
+    """This repository's docs: the text of the ``docs`` module."""
+    return sorted((ROOT / "docs").glob("*.md")) + [ROOT / "README.md", ROOT / "SURVEY.md"]
+
+
+@contextmanager
+def build_stages():
+    """Host seconds of ``build_module``'s stages as ``build_db.main`` drives
+    it (load documents, chunk, embed, save), and the host's waits for the
+    card (``Embedder.encode`` draining a slab) while it chunks: the
+    references that ``indexing/builder.py`` holds to ``load_documents``,
+    ``chunk_document`` and ``VectorIndex``, and the embedder module's
+    ``to_host_async``, are wrapped while the block runs."""
+    from tensortruth_tpu_torch.indexing import builder
+    from tensortruth_tpu_torch.models import embedder
+
+    stats = {"seconds": {}, "chunk_waits": 0}
+    saved = {name: getattr(builder, name) for name in ("load_documents", "chunk_document", "VectorIndex")}
+    to_host_async = embedder.to_host_async
+    chunking = False
+
+    def timed(stage, fn):
+        def call(*args, **kwargs):
+            nonlocal chunking
+            t = time.perf_counter()
+            chunking = stage == "chunk"
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                chunking = False
+                stats["seconds"][stage] = stats["seconds"].get(stage, 0.0) + time.perf_counter() - t
+        return call
+
+    def counted_to_host(x):
+        wait = to_host_async(x)
+
+        def counted_wait():
+            stats["chunk_waits"] += chunking
+            return wait()
+
+        return counted_wait
+
+    class TimedIndex(saved["VectorIndex"]):
+        build = classmethod(timed("embed", saved["VectorIndex"].build.__func__))
+        save = timed("save", saved["VectorIndex"].save)
+
+    builder.load_documents = timed("load documents", saved["load_documents"])
+    builder.chunk_document = timed("chunk", saved["chunk_document"])
+    builder.VectorIndex = TimedIndex
+    embedder.to_host_async = counted_to_host
+    try:
+        yield stats
+    finally:
+        for name, value in saved.items():
+            setattr(builder, name, value)
+        embedder.to_host_async = to_host_async
+
+
+def bucket_histogram(embedder, texts) -> tuple[dict, int]:
+    """({seq bucket: texts}, tokens) as ``Embedder.encode`` pads them."""
+    from tensortruth_tpu_torch.models.embedder import bucket
+
+    _, mask = embedder.tokenizer.encode_batch(list(texts), embedder.max_length)
+    lengths = mask.sum(axis=1)
+    hist = Counter(bucket(int(n), embedder.seq_buckets) for n in lengths)
+    return dict(sorted(hist.items())), int(lengths.sum())
+
+
+def lay_out(modules: dict[str, dict[str, str]]) -> None:
+    """A ``sources.json`` naming each of ``modules`` as a library, and its
+    files (name -> text) under ``library_docs/library_<module>/``."""
+    from tensortruth_tpu_torch.app.paths import get_library_docs_dir
+    from tensortruth_tpu_torch.app.sources import save_user_sources
+
+    save_user_sources({"libraries": {m: {} for m in modules}, "papers": {}, "books": {}})
+    for module, files in modules.items():
+        folder = get_library_docs_dir() / f"library_{module}"
+        folder.mkdir(parents=True)
+        for name, text in files.items():
+            (folder / name).write_text(text, encoding="utf-8")
+
+
+def build(torch, module: str, *flags: str, profiled: bool = False) -> dict:
+    """``build_db.main(["--modules", module, *flags])`` on the card, timed
+    by stage, with B3's launches and the forwards that took it, the host's
+    waits while chunking and the peak device memory of the build;
+    ``profiled`` runs it under torch.profiler for the device's kernel time
+    and B3's share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensortruth_tpu_torch import build_db
+    from tensortruth_tpu_torch.ops.attention import blocked_attention
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocked_attention.launches = 0
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else nullcontext()
+    with build_stages() as stats, b3_forwards() as forwards, prof:
+        t = time.perf_counter()
+        rc = build_db.main(["--modules", module, *flags])
+        stats["wall"] = time.perf_counter() - t
+    check(rc == 0, f"build_db.main --modules {module} {' '.join(flags)}: exit code {rc}")
+    stats["b3_launches"] = blocked_attention.launches
+    stats["b3_forwards"] = forwards
+    check(sum(cfg.num_layers for cfg, _ in forwards) == stats["b3_launches"],
+          f"build {module}: {len(forwards)} forwards at S >= 512 do not account for {stats['b3_launches']} B3 launches")
+    if profiled:
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        stats["device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+        stats["b3_ms"] = sum(e.self_device_time_total for e in kernels if "attention_kernel" in e.key) / 1e3
+    stats["peak"] = torch.cuda.max_memory_allocated()
+    stats["peak_reserved"] = torch.cuda.max_memory_reserved()
+    return stats
+
+
+def node_spans(nodes) -> set:
+    """Each node as (doc_id, file, level, start, end, text) with its
+    parent's span: what two chunkings share whatever their node ids."""
+    by_id = {n.node_id: n for n in nodes}
+
+    def span(n):
+        return (n.doc_id, n.metadata["filename"], n.level, n.start, n.end, n.text)
+
+    return {(span(n), span(by_id[n.parent_id]) if n.parent_id else None) for n in nodes}
+
+
+def docs_texts() -> dict[str, str]:
+    """The ``docs`` module's files: name -> text."""
+    return {f.name: f.read_text(encoding="utf-8") for f in docs_files()}
+
+
+def run_build_path(torch, card: str) -> tuple[int, list[dict]]:
+    """Lay out a ``sources.json`` and ``library_docs/`` for three modules,
+    build them with the port's ``build_db.main`` on the card, check what it
+    wrote and B3 on the inputs the builds gave it, serve the semantic index,
+    and time the embed loop alone and chunking + embedding (the port's
+    ``scripts/measure_build.py``). Returns B3's launches during the builds
+    and its check at their shapes."""
+    import numpy as np
+
+    from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
+    from tensortruth_tpu_torch.app.paths import get_base_indexes_dir
+    from tensortruth_tpu_torch.index import VectorIndex
+    from tensortruth_tpu_torch.indexing import list_modules_for_model
+    from tensortruth_tpu_torch.models.manager import ModelManager
+    from tensortruth_tpu_torch.ops.topk import fused_topk
+    from tensortruth_tpu_torch.scripts import measure_build
+    from tensortruth_tpu_torch.services.rag_service import RAGService
+
+    t0 = time.perf_counter()
+    docs = measure_build.synth_docs(BUILD_DOCS, SEED)
+    lay_out({"corpus": {f"doc_{i:03d}.md": text for i, text in enumerate(docs)},
+             "docs": docs_texts(), "docs_semantic": docs_texts()})
+    log(f"build inputs: sources.json with {len(BUILD_MODULES)} library modules; corpus {BUILD_DOCS} docs, "
+        f"{sum(len(d.split()) for d in docs)} words; docs and docs_semantic {len(docs_files())} files each; "
+        f"laid out in {time.perf_counter() - t0:.1f} s")
+
+    model_dir = get_base_indexes_dir() / "bge-m3"
+    b3_launches, b3_inputs = 0, []
+    for module, flags in (("corpus", ()), ("docs", ()), ("docs_semantic", ("--chunking-strategy", "semantic"))):
+        stats = build(torch, module, *flags, profiled=module == "docs_semantic")
+        b3_launches += stats["b3_launches"]
+        b3_inputs += stats["b3_forwards"]
+        embedder = ModelManager.get_instance().get_embedder()  # the resident model the CLI loaded
+        check(embedder.device.type == "cuda" and embedder.cfg.hidden_size == 1024 and embedder.cfg.num_layers == 24,
+              f"build {module}: embedder on {embedder.device}, not BGE-M3 at full width on the card")
+        index = VectorIndex.load(model_dir / f"library_{module}")
+        hist, tokens = bucket_histogram(embedder, [n.text for n in index.rows_to_nodes(np.arange(index.n_rows))])
+        n_nodes = len(index.store)
+        stages = ", ".join(f"{k} {v:.2f} s" for k, v in stats["seconds"].items())
+        log(f"build {module} ({' '.join(flags) or 'hierarchical'}): {n_nodes} nodes, {index.n_rows} leaves, "
+            f"{tokens} leaf tokens; stages: {stages}; build_db.main {stats['wall']:.2f} s -> "
+            f"{index.n_rows / stats['wall']:.1f} chunks/s ({index.n_rows / stats['seconds']['embed']:.1f} in the "
+            f"embed stage); peak device memory {gib(stats['peak'])}, reserved {gib(stats['peak_reserved'])}; "
+            f"B3 launches {stats['b3_launches']}; leaves by seq bucket {hist}; host waits while chunking "
+            f"{stats['chunk_waits']} ({card})")
+        if module == "corpus":
+            check(index.n_rows >= 8000, f"build corpus: {index.n_rows} leaves, wanted >= 8000")
+        if module == "docs":
+            want = node_spans(docs_nodes(embedder.tokenizer))
+            got = node_spans(list(index.store.nodes()))
+            check(got == want, f"build docs: {len(got ^ want)} nodes differ from docs_nodes() by span")
+        if module == "docs_semantic":
+            check(stats["b3_launches"] > 0, "build docs_semantic: kernel blocked_attention was not launched")
+            log(f"build docs_semantic: {stats['chunk_waits'] / len(docs_files()):.2f} host waits per document "
+                f"while chunking (one encode per document, drained before the next); profiled: device kernel "
+                f"time {stats['device_ms']:.1f} ms in {stats['wall'] * 1e3:.1f} ms of build_db.main, B3 "
+                f"{stats['b3_ms']:.2f} ms of it ({100 * stats['b3_ms'] / stats['device_ms']:.1f}%)")
+
+    check(list_modules_for_model(get_base_indexes_dir(), "BAAI/bge-m3") == [f"library_{m}" for m in BUILD_MODULES],
+          f"list_modules_for_model: {list_modules_for_model(get_base_indexes_dir(), 'BAAI/bge-m3')}")
+    for module in BUILD_MODULES:
+        meta = json.loads((model_dir / f"library_{module}" / "index_metadata.json").read_text())
+        missing = {"embedding_model", "chunking_strategy", "chunk_sizes", "gelu"} - set(meta)
+        check(not missing and meta["embedding_model"] == "BAAI/bge-m3", f"{module} metadata: {meta}")
+        emb = VectorIndex.load(model_dir / f"library_{module}").matrix()[0]
+        norms = np.linalg.norm(emb, axis=1)
+        check(emb.dtype == np.float32 and np.isfinite(emb).all() and np.abs(norms - 1).max() < 1e-3,
+              f"{module}: embeddings {emb.dtype}, norms {norms.min()}..{norms.max()}")
+
+    svc = RAGService(config=TensorTruthTPUConfig.default(), llm_factory=lambda params: StubLLM())
+    engine = svc.load_engine(["docs_semantic", "corpus"], {"reranker_top_n": 5},
+                             indexes_dir=get_base_indexes_dir(), device="cuda")
+    check(engine.retriever._stacked.is_cuda and engine.pipeline is not None, "semantic index not served on the card")
+    fused_topk.launches = 0
+    for text in SEMANTIC_QUESTIONS:
+        r = svc.retrieve(text)
+        check(r.sources, f"docs_semantic: no sources for {text[:40]!r}")
+        log(f"docs_semantic + corpus served: {len(r.sources)} sources from "
+            f"{sorted({s.metadata['module'] for s in r.sources})}, confidence {r.confidence}")
+    check(fused_topk.launches > 0, "docs_semantic: kernel fused_topk was not launched")
+    svc.clear_engines()
+
+    b3_shapes = check_attention_on_path(torch, "build", b3_inputs)
+
+    # scripts/measure_build.py's own measurement, its numbers printed there.
+    log(f"scripts/measure_build.py on the build's embedder ({card}):")
+    measure_build.run(embedder)
+    profile_encode(torch, embedder, measure_build.synth_chunks(measure_build.N_CHUNKS, SEED))
+    return b3_launches, b3_shapes
+
+
+def profile_encode(torch, embedder, texts) -> None:
+    """Replay the encode-only measurement under torch.profiler: the device's
+    kernel time against the wall time, and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        embedder.encode(texts)
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profiled encode of {len(texts)} leaves: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}% of wall) in {sum(e.count for e in kernels)} kernel launches")
+    for e in kernels[:8]:
+        log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+# -- phase 5: the main path --------------------------------------------------
 
 
 def docs_nodes(tokenizer) -> list:
+    """The ``docs`` module chunked directly, each file's doc_id its name as
+    ``indexing/builder.py::build_module`` gives it."""
     from tensortruth_tpu_torch.index import chunk_document
 
-    files = sorted((ROOT / "docs").glob("*.md")) + [ROOT / "README.md", ROOT / "SURVEY.md"]
     nodes = []
-    for f in files:
+    for f in docs_files():
         meta = {"filename": f.name, "doc_type": "library"}
         nodes += chunk_document(
-            f.read_text(encoding="utf-8"), tokenizer, doc_id=f.stem, module="docs", metadata=meta
+            f.read_text(encoding="utf-8"), tokenizer, doc_id=f.name, module="docs", metadata=meta
         )
     return nodes
 
@@ -641,7 +994,7 @@ def profile_request(torch, svc, text: str) -> None:
     check(not between, f"profiled replay: {len(between)} stream synchronises between the rerank batches")
 
 
-def run_main_path(torch, work: Path) -> dict:
+def run_main_path(torch, work: Path) -> tuple[dict, list[dict]]:
     from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
     from tensortruth_tpu_torch.index import VectorIndex
     from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
@@ -652,13 +1005,10 @@ def run_main_path(torch, work: Path) -> dict:
     t0 = time.perf_counter()
     embedder = ModelManager.get_instance().get_embedder(ModelSpec("BAAI/bge-m3"), device="cuda")
     model_dir = work / "indexes" / "bge-m3"
-    nodes = docs_nodes(embedder.tokenizer)
-    docs = VectorIndex.build(nodes, embedder.encode, embedding_model="BAAI/bge-m3",
-                             chunk_sizes=[2048, 512, 256], gelu_flavor=embedder.gelu_flavor)
-    docs.save(model_dir / "docs")
+    docs = VectorIndex.load(model_dir / "library_docs")  # what build_db.main wrote in the build path
     synthetic_index(torch, CORPUS_ROWS - docs.n_rows, embedder.dim).save(model_dir / "synthetic")
-    log(f"index: docs {docs.n_rows} leaves ({len(nodes)} nodes), synthetic "
-        f"{CORPUS_ROWS - docs.n_rows} leaves, written in {time.perf_counter() - t0:.1f} s")
+    log(f"index: docs {docs.n_rows} leaves ({len(docs.store)} nodes, built by build_db.main), "
+        f"synthetic {CORPUS_ROWS - docs.n_rows} leaves, written in {time.perf_counter() - t0:.1f} s")
 
     llm = StubLLM()
     svc = RAGService(config=TensorTruthTPUConfig.default(), llm_factory=lambda params: llm)
@@ -692,22 +1042,27 @@ def run_main_path(torch, work: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fused_topk.launches = 0
     blocked_attention.launches = 0
-    request_ms, results = [], []
-    for text in questions:
+    request_ms, results, b3_seen = [], [], []
+    with b3_forwards() as b3_inputs:
+        for text in questions:
+            t = time.perf_counter()
+            results.append(svc.retrieve(text))
+            torch.cuda.synchronize()
+            request_ms.append((time.perf_counter() - t) * 1e3)
+            b3_seen.append(len(b3_inputs))
         t = time.perf_counter()
-        results.append(svc.retrieve(text))
+        gen = svc.query("Summarise how a query flows from embedding to the reranked answer.")
+        try:
+            while True:
+                next(gen)
+        except StopIteration as stop:
+            response = stop.value
         torch.cuda.synchronize()
         request_ms.append((time.perf_counter() - t) * 1e3)
-    t = time.perf_counter()
-    gen = svc.query("Summarise how a query flows from embedding to the reranked answer.")
-    try:
-        while True:
-            next(gen)
-    except StopIteration as stop:
-        response = stop.value
-    torch.cuda.synchronize()
-    request_ms.append((time.perf_counter() - t) * 1e3)
+        b3_seen.append(len(b3_inputs))
     launches = {"fused_topk": fused_topk.launches, "blocked_attention": blocked_attention.launches}
+    check(sum(cfg.num_layers for cfg, _ in b3_inputs) == launches["blocked_attention"],
+          f"{len(b3_inputs)} forwards at S >= 512 do not account for {launches['blocked_attention']} B3 launches")
     peak = torch.cuda.max_memory_allocated()
 
     for text, r in zip(questions, results):
@@ -727,6 +1082,11 @@ def run_main_path(torch, work: Path) -> dict:
         stages = ", ".join(f"{k} {v:.1f}" for k, v in r.metrics["timings"].items() if isinstance(v, float))
         log(f"request {i} stage ms (host clock): {stages}")
     log(f"launches during the requests: {launches}")
+    # Which request reranks (or embeds) at S >= 512, and at what batch and
+    # sequence buckets: the traffic B3 sees, request by request.
+    log("forwards at S >= 512 per request, (B, S): " + "; ".join(
+        f"{i}: {[tuple(m.shape) for _, m in b3_inputs[lo:hi]]}"
+        for i, (lo, hi) in enumerate(zip([0] + b3_seen, b3_seen))))
     log(f"peak device memory during the requests: {peak} bytes ({peak / 2**30:.2f} GiB)")
 
     profile_request(torch, svc, questions[0])
@@ -739,10 +1099,16 @@ def run_main_path(torch, work: Path) -> dict:
     recall = hits / exact_idx.numel()
     check(recall >= MIN_RECALL, f"fused top-20 recall {recall} < {MIN_RECALL}")
     log(f"fused vs exact top-20 recall over the corpus: {recall:.4f}")
-    return launches
+    # What the requests' traffic is made of, to tell two runs' traffic apart:
+    # the docs index's rows, the questions' embeddings, their fused top-20.
+    digests = {name: hashlib.sha1(a.tobytes()).hexdigest()[:12] for name, a in (
+        ("docs rows", docs.matrix()[0]), ("query embeddings", q.float().cpu().numpy()),
+        ("fused top-20 rows", fused_idx.cpu().numpy()))}
+    log(f"traffic digests (sha1): {digests}")
+    return launches, check_attention_on_path(torch, "main", b3_inputs)
 
 
-# -- phase 5: the capacity path ------------------------------------------------
+# -- phase 6: the capacity path ------------------------------------------------
 
 CAPACITY_QUESTIONS = [
     "How does the IVF tier pick the clusters it probes?",
@@ -823,7 +1189,7 @@ def run_capacity_path(torch, work: Path) -> dict:
     from tensortruth_tpu_torch.services.rag_service import RAGService
 
     model_dir = work / "indexes" / "bge-m3"
-    docs_rows = VectorIndex.load(model_dir / "docs").n_rows
+    docs_rows = VectorIndex.load(model_dir / "library_docs").n_rows
     embedder = ModelManager.get_instance().get_embedder(ModelSpec("BAAI/bge-m3"), device="cuda")
     t0 = time.perf_counter()
     synthetic_index(torch, CAPACITY_ROWS - docs_rows, embedder.dim).save(model_dir / "capacity")
@@ -934,7 +1300,7 @@ def run_capacity_path(torch, work: Path) -> dict:
     return launches
 
 
-# -- phase 6: the probe path --------------------------------------------------
+# -- phase 7: the probe path --------------------------------------------------
 
 
 def run_probe_path() -> dict:
@@ -974,6 +1340,7 @@ def main() -> None:
     work = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
     for var, sub in (
         ("TENSOR_TRUTH_TPU_DATA_DIR", "data"),
+        ("TENSOR_TRUTH_TPU_INDEXES_DIR", "indexes"),
         ("TENSOR_TRUTH_TPU_NATIVE_CACHE", "native"),
         ("TENSOR_TRUTH_TPU_MODELS_DIR", "models"),
         ("HF_HUB_CACHE", "hf"),
@@ -997,7 +1364,10 @@ def main() -> None:
             **check_tc_matmul(torch),
         }
         t0 = time.perf_counter()
-        launches = run_main_path(torch, work)
+        build_launches, build_shapes = run_build_path(torch, card)
+        log(f"build path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, main_shapes = run_main_path(torch, work)
         log(f"main path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         launches |= run_capacity_path(torch, work)
@@ -1008,6 +1378,14 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # B3 runs on two paths: the build's long leaves and the main path's long
+    # request; each was also held against its plain version at that path's
+    # shapes and masks.
+    b3 = measured["blocked_attention"]
+    b3["launches_by_path"] = {"build": build_launches, "main": launches["blocked_attention"]}
+    b3["by_path"] = {"build": build_shapes, "main": main_shapes}
+    b3["max_abs_err"] = max([b3["max_abs_err"]] + [e["max_abs_err"] for e in build_shapes + main_shapes])
+    launches["blocked_attention"] += build_launches
     kernels = [
         {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}
         for name in KERNELS

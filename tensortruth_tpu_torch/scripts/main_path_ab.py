@@ -7,6 +7,10 @@ the checkout named comes first on the import path:
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a git-ignored directory and run parent, change, change, parent one
 after another on the same card; each run prints its request times and its profiled request.
+Where the checkout's main path serves the ``docs`` index that ``build_db``
+writes (its ``chip_smoke.py`` has ``lay_out``), that module is laid out and
+built first, as ``chip_smoke.py``'s build path does; an older checkout's
+main path builds its own.
 """
 
 import importlib.util
@@ -36,12 +40,16 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     work = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=root))
-    for var, sub in (("TENSOR_TRUTH_TPU_DATA_DIR", "data"), ("TENSOR_TRUTH_TPU_NATIVE_CACHE", "native"),
-                     ("TENSOR_TRUTH_TPU_MODELS_DIR", "models"), ("HF_HUB_CACHE", "hf")):
+    for var, sub in (("TENSOR_TRUTH_TPU_DATA_DIR", "data"), ("TENSOR_TRUTH_TPU_INDEXES_DIR", "indexes"),
+                     ("TENSOR_TRUTH_TPU_NATIVE_CACHE", "native"), ("TENSOR_TRUTH_TPU_MODELS_DIR", "models"),
+                     ("HF_HUB_CACHE", "hf")):
         os.environ[var] = str(work / sub)
     try:
         _build.load()
         print(f"=== main path of {label} ({root})", flush=True)
+        if hasattr(smoke, "lay_out"):
+            smoke.lay_out({"docs": smoke.docs_texts()})
+            smoke.build(torch, "docs")
         smoke.run_main_path(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -5,12 +5,16 @@ The port imports nothing of ``tensortruth_tpu``: it keeps copies of the
 jax-free host code it runs (``app/{config,paths,history_cleaner}``,
 ``core/{source,prompts,providers}``, ``index/``, ``native/hostkit``,
 ``services/{batcher,chat_history,condenser,feeder}``, ``tokenization/``
-and ``StageTimer`` of ``utils/profiling``). A copy differs from its original
-only in the package name, and gives the original's outputs: the same nodes
-from the chunker, the same token ids from the tokenizer (Python and C++
-paths), the same config, prompts, histories and batches. What one package
-writes to disk (a ``VectorIndex``, plain or packed; a config file) the other
-reads back unchanged, so one index directory and one config serve both.
+and ``StageTimer`` of ``utils/profiling``; for the offline build path
+``core/types``, ``app/sources``, ``utils/{pdf,validation,interactive}``,
+``indexing/``, ``web/html2md``, ``scrapers/`` and ``fetch_sources``). A
+copy differs from its original only in the package name, and gives the
+original's outputs: the same nodes from the chunker, the same token ids from
+the tokenizer (Python and C++ paths), the same config, prompts, histories
+and batches, the same validation errors, PDF text and Markdown. What one
+package writes to disk (a ``VectorIndex``, plain or packed; a config file; a
+``sources.json``) the other reads back unchanged, so one index directory,
+one config and one sources file serve both.
 """
 
 import dataclasses
@@ -33,6 +37,12 @@ COPIED = [
     "native/__init__.py", "native/hostkit.py", "native/hostkit.cpp",
     "services/batcher.py", "services/chat_history.py", "services/condenser.py", "services/feeder.py",
     "tokenization/__init__.py", "tokenization/tokenizer.py", "utils/__init__.py",
+    # the offline build path and its ingestion front
+    "core/types.py", "app/sources.py", "utils/pdf.py", "utils/validation.py", "utils/interactive.py",
+    "indexing/__init__.py", "indexing/metadata.py", "indexing/migration.py", "indexing/builder.py",
+    "web/__init__.py", "web/html2md.py", "fetch_sources.py",
+    "scrapers/__init__.py", "scrapers/common.py", "scrapers/sphinx.py", "scrapers/doxygen.py",
+    "scrapers/library.py", "scrapers/arxiv.py", "scrapers/book.py",
 ]
 
 
@@ -404,3 +414,62 @@ def test_feeder_tokenizes_the_same_pairs(n_workers, n_pairs):
     for want, got in ((ra, pa), (rb, pb), (pa, pb)):
         for w, g in zip(want, got):
             np.testing.assert_array_equal(g, w)
+
+
+# -- the build path: sources, validation, PDF and HTML text ----------------------
+
+
+@pytest.mark.parametrize("writer,reader", [(REF, PORT), (PORT, REF)])
+def test_sources_file_round_trips_between_packages(monkeypatch, tmp_path, writer, reader):
+    monkeypatch.setenv("TENSOR_TRUTH_TPU_DATA_DIR", str(tmp_path))
+    sources = {"libraries": {"numpy": {"doc_type": "sphinx", "inventory_url": "https://numpy.org/doc/objects.inv"}},
+               "papers": {"attn": {"papers": {"1706.03762": {"title": "Attention", "year": 2017}}}},
+               "books": {"bk": {"url": "https://example.org/b.pdf", "use_toc": True}}}
+    importlib.import_module(f"{writer}.app.sources").save_user_sources(sources)
+    mod = importlib.import_module(f"{reader}.app.sources")
+    loaded = mod.load_user_sources()
+    assert loaded == sources
+    assert mod.list_all_modules(loaded) == ["numpy", "attn", "bk"]
+    assert [mod.get_document_type_for_module(loaded, m).value for m in ("numpy", "attn", "bk")] == [
+        "library", "papers", "book"]
+
+
+def test_validation_gives_the_same_errors(tmp_path):
+    sources = {"libraries": {"lib": {"doc_type": "sphinx"}, "dox": {"doc_type": "doxygen", "doc_root": "ftp://x"}},
+               "papers": {"cat": {"papers": ["1234.0001", "not-an-id"]}, "empty": {"papers": []}},
+               "books": {"bk": {"pages_per_chunk": 0, "converter": "nope"}}}
+    (tmp_path / "library_lib").mkdir()
+    (tmp_path / "papers_cat").mkdir()
+    (tmp_path / "papers_cat" / "p.md").write_text("text")
+    (tmp_path / "book_stray").mkdir()
+    ref, port = _both("utils.validation")
+    for module in ("lib", "dox", "cat", "empty", "bk", "ghost"):
+        got = port.validate_module_for_build(module, sources, tmp_path)
+        assert got == ref.validate_module_for_build(module, sources, tmp_path)
+    assert port.validate_sources(sources, tmp_path) == ref.validate_sources(sources, tmp_path)
+    assert port.validate_sources(sources, tmp_path)["errors"]  # the bad entries are reported
+    for cfg in ({"doc_type": "sphinx"}, {"doc_type": "doxygen", "doc_root": "https://d/"}, {"doc_type": "x"}):
+        assert port.validate_library_config(cfg) == ref.validate_library_config(cfg)
+    ref, port = _both("utils.interactive")
+    for arxiv_id in ("1706.03762", "arXiv:1706.03762v2", "hep-th/9901001", "17060.3762", ""):
+        assert port.validate_arxiv_id(arxiv_id) == ref.validate_arxiv_id(arxiv_id)
+
+
+@pytest.mark.parametrize("chapters", [None, [("Intro", 0), ("Methods", 1)]])
+def test_pdf_text_is_the_same(chapters):
+    from test_pdf_toc import _make_pdf
+
+    pdf = _make_pdf(["first page text", "second page text", "third"], chapters=chapters)
+    ref, port = _both("utils.pdf")
+    assert port.pdf_to_text(pdf) == ref.pdf_to_text(pdf) and "second page" in port.pdf_to_text(pdf)
+    assert port.post_process_markdown(port.pdf_to_text(pdf)) == ref.post_process_markdown(ref.pdf_to_text(pdf))
+    assert port.extract_pdf_metadata(pdf) == ref.extract_pdf_metadata(pdf)
+
+
+def test_html_to_markdown_is_the_same():
+    html = ("<html><head><title>Arrays</title></head><body><nav>skip</nav><h1>Arrays</h1>"
+            "<p>Some <b>bold</b> and <code>x = 1</code>.</p><pre>def f():\n    return 1</pre>"
+            "<ul><li>one</li><li>two <a href='/x'>link</a></li></ul><table><tr><td>a</td></tr></table></body></html>")
+    ref, port = _both("web.html2md")
+    assert port.html_to_markdown(html) == ref.html_to_markdown(html) and "Arrays" in port.html_to_markdown(html)
+    assert port.extract_title(html) == ref.extract_title(html)

@@ -2,9 +2,11 @@
 
 * A fresh interpreter imports every module of ``tensortruth_tpu_torch``,
   builds nothing, loads a tiny CPU engine through the port's
-  ``RAGService.load_engine`` and answers one ``retrieve()``: afterwards no
-  module of the JAX package (``tensortruth_tpu`` or under it), no ``jax``
-  and no ``triton`` is in ``sys.modules``.
+  ``RAGService.load_engine`` and answers one ``retrieve()``, then builds an
+  index through the port's ``build_db.main`` (a tiny CPU embedder seated in
+  its model manager) and lists the sources through ``fetch_sources.main``:
+  afterwards no module of the JAX package (``tensortruth_tpu`` or under it),
+  no ``jax`` and no ``triton`` is in ``sys.modules``.
 * No source file of the port and not ``chip_smoke.py`` imports the JAX
   package or jax, lazily or not (an AST walk over every import).
 * The CUDA-only wrappers (B1, B2, B3, B4, B5) raise on inputs their kernels
@@ -57,6 +59,18 @@ svc = RAGService(config=cfg, llm_factory=lambda params: None)
 svc.load_engine(["docs"], {"reranker_top_n": 3}, indexes_dir=work / "indexes", device="cpu")
 result = svc.retrieve("How does the engine merge chunks?")
 assert result.sources, result
+
+from tensortruth_tpu_torch import build_db, fetch_sources
+from tensortruth_tpu_torch.app.sources import save_user_sources
+
+save_user_sources({"libraries": {"readme": {}}, "papers": {}, "books": {}})
+docs = work / "data" / "library_docs" / "library_readme"
+docs.mkdir(parents=True)
+(docs / "README.md").write_text(text, encoding="utf-8")
+assert build_db.main(["--modules", "readme", "--embedding-model", "tiny-embedder", "--chunk-sizes", "128", "32",
+                      "--chunk-overlap", "8"]) == 0
+assert VectorIndex.is_valid(work / "data" / "indexes" / "tiny-embedder" / "library_readme")
+assert fetch_sources.main(["list"]) == 0
 foreign = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("tensortruth_tpu", "jax", "jaxlib", "triton"))
 print(len(mods), len(result.sources), foreign)

@@ -21,10 +21,17 @@ the int8 range too; bf16 -> f32
 agrees within 1e-3 absolute on N(0, 1) inputs (f32 sums of exact products in
 other orders, outputs up to about 6 * sqrt(K)).
 
-The last tests hold the embedder and the reranker on the card to their
-promise of no stream synchronise between the batches they launch.
+Then the embedder and the reranker are held on the card to their promise of
+no stream synchronise between the batches they launch, and the port's
+``build_module`` builds on the card the index it builds on the CPU: the same
+nodes and rows, embeddings within 2e-2 (a tiny model in bf16 on the card
+against f32 on the CPU; unit-norm rows), with kernel B3 launched when the
+leaves reach 512 tokens.
 """
 
+import json
+
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -423,3 +430,54 @@ def test_embedder_waits_once_per_slab(gen):
     assert _syncs(prof) == 0
     assert _syncs(prof, ("cudaStreamSynchronize", "cudaEventSynchronize")) <= 2
     assert got.shape == (2100, 64) and (got == want).all()
+
+
+def _write_docs(root, words: int) -> None:
+    """Three docs of sentences over a 300-word vocabulary, from a seed."""
+    rng = np.random.default_rng(3)
+    vocab = [f"w{i}" for i in range(300)]
+    docs = root / "library_gamma"
+    docs.mkdir(parents=True)
+    for d in range(3):
+        sents = [" ".join(rng.choice(vocab, 12)).capitalize() + "." for _ in range(words // 12)]
+        (docs / f"d{d}.md").write_text("\n\n".join(" ".join(sents[i : i + 6]) for i in range(0, len(sents), 6)))
+
+
+def _index_shape(path):
+    from tensortruth_tpu_torch.index import VectorIndex
+
+    index = VectorIndex.load(path)
+    key = {n.node_id: (n.doc_id, n.level, n.start, n.end, n.text) for n in index.store.nodes()}
+    nodes = [(key[n.node_id], key.get(n.parent_id)) for n in index.store.nodes()]
+    rows = [key[n.node_id] for n in index.rows_to_nodes(np.arange(index.n_rows))]
+    meta = json.loads((path / "index_metadata.json").read_text())
+    meta.pop("created_at")
+    return nodes, rows, np.asarray(index.matrix()[0]), meta
+
+
+@pytest.mark.parametrize("chunk_sizes", [[128, 32], [2048, 512]])
+def test_build_module_on_the_card_matches_the_cpu(gen, tmp_path, chunk_sizes):
+    from tensortruth_tpu_torch.indexing.builder import build_module
+    from tensortruth_tpu_torch.models.xlmr import XLMRConfig, XLMRModel
+
+    _write_docs(tmp_path / "docs", 3000)
+    cfg = XLMRConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+                     max_position=2050)
+    tok = SimpleTokenizer(vocab_size=512)
+    cpu = XLMRModel.random_init(cfg, "cpu", dtype=torch.float32, seed=5)
+    card = XLMRModel.from_state_dict(cfg, cpu.state_dict(), "cuda", torch.bfloat16)
+    sources = {"libraries": {"gamma": {}}, "papers": {}, "books": {}}
+    shapes, launches = [], []
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        before = blocked_attention.launches
+        assert build_module("gamma", Embedder(model, tok), library_docs_dir=tmp_path / "docs",
+                            indexes_dir=tmp_path / name, sources=sources, embedding_model="tiny-embedder",
+                            chunk_sizes=chunk_sizes, chunk_overlap=8)
+        launches.append(blocked_attention.launches - before)
+        shapes.append(_index_shape(tmp_path / name / "tiny-embedder" / "library_gamma"))
+    (nodes, rows, emb, meta), (cnodes, crows, cemb, cmeta) = shapes
+    assert cnodes == nodes and crows == rows and cmeta == meta and len(rows) > 3
+    np.testing.assert_allclose(np.linalg.norm(cemb, axis=1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(cemb, emb, atol=2e-2, rtol=0)
+    assert launches[0] == 0  # the CPU takes the plain attention
+    assert (launches[1] > 0) == (chunk_sizes[-1] >= 512)
