@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's index build and online query path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's index build, server and online query path once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -38,7 +38,26 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    ``scripts/measure_build.py`` times the embed loop alone over 2048 leaves
    of 248 words, and chunking (native and Python tokenizer) + embedding of
    48 docs of 11,000 words;
-5. main path: a two-module index (the ``docs`` index the build path wrote,
+5. server path: the port's aiohttp app (``create_app(device="cuda")``) in
+   this process on 127.0.0.1, over the ``corpus`` index the build path
+   wrote, with a stub chat model: ``/health``, ``/api/config/devices`` (must
+   name the card), a session over ``corpus``, a document of about 2,000
+   words of the docs uploaded into it (chunked and embedded on the card),
+   one REST chat, three WebSocket messages (``/help``, one leaf of the
+   uploaded document verbatim, a 640-token passage: B3),
+   ``/api/system/memory`` against ``torch.cuda.memory_allocated``, and one
+   chat under the profile routes, whose trace must name B1's kernel. Each
+   chat must give sources and ``done`` with no error frame, and both WS
+   questions' sources must hold some of the uploaded document; the leaf's
+   search must return that leaf. Every B1 search of the phase is held
+   against a plain search of its query over the engine's indexes, stacked
+   anew: each returned score is the plain score of its row, the rows hold
+   at least MIN_RECALL of the plain top-k, and the session index's rows
+   among them are counted both ways (so a chat with none of the upload
+   among its sources is shown to have ranked it below the top-k). B1 and
+   B3 must be launched during the phase; B3 is held against its plain
+   version on every mask the phase gave it;
+6. main path: a two-module index (the ``docs`` index the build path wrote,
    whose nodes must match the chunker's by span, plus a synthetic module that
    brings the stacked corpus to 262,144 leaf rows), loaded with the port's
    ``load_engine_for_modules`` under the default BGE-M3 /
@@ -50,7 +69,7 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    plain version on the mask of every forward that took it, and, in a
    profiled replay of one request, that no stream synchronise falls between
    the rerank stage's batch launches are checked;
-6. capacity path: one more module brings the docs to 2,097,152 rows (the
+7. capacity path: one more module brings the docs to 2,097,152 rows (the
    smallest power of two above the 2M-row IVF threshold). Through
    ``load_engine`` it is served (a) as the int8 flat tier (``corpus_dtype:
    int8``: kernel B2) and (b) with default params as the IVF tier over bf16
@@ -60,13 +79,14 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    int8 variant and its grouping kernel) and answers one 32-query batch. Each checks its placement,
    its answers, a recall or self-retrieval rate, and that its kernel was
    launched while it was driven;
-7. probe path: the int8 tensor-core probe
+8. probe path: the int8 tensor-core probe
    (``tensortruth_tpu_torch.scripts.probe_int8_mma.run()``) times B5's four
    variants at M=16384, K=1024, N=4096 and applies the reference's decision
    rule; B5 must have been launched, bf16 and int8, while it ran.
 
-The last three lines are the card's name and power limit, a JSON object
-describing each kernel, and the final ``{"ok": true, "device": ...}`` line.
+The last four lines are the server phase's numbers (``{"server": ...}``),
+the card's name and power limit, a JSON object describing each kernel, and
+the final ``{"ok": true, "device": ...}`` line.
 Nothing here imports JAX or the JAX package; the host code (index, chunker,
 config) is the port's own. All scratch files go to a temporary directory
 inside the checkout that is removed at exit.
@@ -77,6 +97,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -521,7 +542,11 @@ def check_attention_on_path(torch, path: str, forwards) -> list[dict]:
     rows and lengths of that forward), with random q, k, v laid out as the
     encoder's (B, NH, S, DH) views of a (B, S, H) projection. The plain
     version runs 16 rows at a time (rows are independent) to bound its
-    (B, NH, S, S) f32 scores; each (B, S) is timed once."""
+    (B, NH, S, S) f32 scores; each (B, S) is timed once on its first mask:
+    the kernel, the plain version (its 16-row pieces in turn) and
+    ``scaled_dot_product_attention`` with the -1e9 bias as a float mask."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
     from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -550,13 +575,24 @@ def check_attention_on_path(torch, path: str, forwards) -> list[dict]:
             keys = int(torch.where(lengths > 0, lengths, s).sum())
             entry["rows_real"] = int((lengths > 0).sum())
             entry["ms"] = cuda_ms(torch, lambda: blocked_attention(q, k, v, mask))
+
+            def plain():
+                for i in range(0, b, 16):
+                    attention_reference(*(t[i : i + 16] for t in (q, k, v, mask)))
+
+            entry["plain_ms"] = cuda_ms(torch, plain, iters=5, warmup=1)
+            bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(q.dtype)
+            entry["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=bias))
             entry.update(bound(nbytes(q, out, mask) + nbytes(k, v) * keys // (b * s), 4 * nh * s * dh * keys))
+            del bias
         del q, k, v, out
     torch.cuda.empty_cache()
     for e in shapes.values():
         log(f"kernel blocked_attention on the {path} path B={e['b']} NH={e['nh']} S={e['s']} DH={e['dh']} ({e['forwards']} "
             f"forwards, {e['rows_real']} of {e['b']} rows real in the first): max_abs_err={e['max_abs_err']:.3g}, "
-            f"over max(1, |plain|) {e['max_scaled_err']:.3g} (tol {ATTN_TOL}); kernel {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+            f"over max(1, |plain|) {e['max_scaled_err']:.3g} (tol {ATTN_TOL}); kernel {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms, scaled_dot_product_attention {e['library_ms']:.4f} ms, bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
     return list(shapes.values())
 
 
@@ -873,7 +909,7 @@ def profile_encode(torch, embedder, texts) -> None:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-# -- phase 5: the main path --------------------------------------------------
+# -- phase 6: the main path --------------------------------------------------
 
 
 def docs_nodes(tokenizer) -> list:
@@ -1108,7 +1144,293 @@ def run_main_path(torch, work: Path) -> tuple[dict, list[dict]]:
     return launches, check_attention_on_path(torch, "main", b3_inputs)
 
 
-# -- phase 6: the capacity path ------------------------------------------------
+# -- phase 5: the server path (it runs before the main path, whose stub LLM
+# and long passage it shares) ---------------------------------------------------
+
+# The session's own document: this repository's docs/, line by line up to
+# about 2,000 words (the size of a pasted chapter), uploaded as Markdown.
+UPLOAD_NAME = "pasted_docs.md"
+UPLOAD_WORDS = 2000
+SERVER_MODULES = ["corpus"]  # 13,824 leaves + the session's own index: B1
+SERVER_QUESTION = "How does the engine merge leaf chunks into their parents?"
+# The chats in the order they search the corpus (``/help`` does not).
+SERVER_SEARCHES = ["REST chat", "leaf question", "passage", "profiled chat"]
+# The direct RAG path, which a session takes when no provider reports a
+# tool-capable model (the card has none): the orchestrator's gate would ask
+# a provider for the model's capabilities.
+SERVER_PARAMS = {"orchestrator_enabled": False}
+
+
+class ServerLLM(StubLLM):
+    """The stub chat model behind the server: as a condenser it returns the
+    follow-up unchanged (each message is already a standalone query), as a
+    titler the prompt's first words."""
+
+    def complete(self, prompt):
+        if prompt.rstrip().endswith("Standalone Query:"):
+            return prompt.rsplit("User Input: ", 1)[1].split("\n\nRewrite rules:", 1)[0]
+        return " ".join(prompt.split()[:6])
+
+
+def upload_text() -> str:
+    """docs/*.md, line by line, until UPLOAD_WORDS words."""
+    lines, words = [], 0
+    for f in sorted((ROOT / "docs").glob("*.md")):
+        for line in f.read_text(encoding="utf-8").splitlines():
+            lines.append(line)
+            words += len(line.split())
+            if words >= UPLOAD_WORDS:
+                return "\n".join(lines)
+    raise RuntimeError(f"docs/ holds {words} words, fewer than {UPLOAD_WORDS}")
+
+
+@contextmanager
+def timed_loads(rag):
+    """Seconds of each ``RAGService.load_engine`` call while the block runs
+    (a cached engine returns at once; the first call builds it)."""
+    seconds = []
+    load = rag.load_engine
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return load(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t)
+
+    rag.load_engine = timed
+    try:
+        yield seconds
+    finally:
+        del rag.load_engine
+
+
+def from_upload(sources) -> int:
+    """How many of a message's sources come from the uploaded document."""
+    return sum((s.get("metadata") or {}).get("filename") == UPLOAD_NAME for s in sources)
+
+
+def trace_names_b1(path: str) -> int:
+    """Events of B1's kernel (``topk_stream_kernel<Bf16Rows>``, demangled
+    with its namespace) in a Chrome trace the server wrote."""
+    return len(re.findall(r'"name": "[^"]*topk_stream_kernel<[^"]*Bf16Rows', Path(path).read_text(encoding="utf-8")))
+
+
+@contextmanager
+def b1_searches():
+    """(query, k, returned scores, returned rows) of every B1 search while
+    the block runs: ``pipeline.py``'s ``fused_topk``, through which the
+    server's queries reach the corpus, is wrapped."""
+    from tensortruth_tpu_torch import pipeline
+
+    searches = []
+    search = pipeline.fused_topk
+
+    def recorded(q, emb, k, **kwargs):
+        vals, idx = search(q, emb, k, **kwargs)
+        searches.append((q.clone(), k, vals.clone(), idx.clone()))
+        return vals, idx
+
+    pipeline.fused_topk = recorded
+    try:
+        yield searches
+    finally:
+        pipeline.fused_topk = search
+
+
+def check_server_searches(torch, retriever, searches, leaf_id: str) -> list[dict]:
+    """Each B1 search of the server phase against a plain search of its
+    query over the engine's indexes, stacked here from each index's own
+    matrix (in bf16, as the engine holds them), rows named by node id: each
+    returned score must be the plain score of its node, and the returned
+    nodes must hold MIN_RECALL of the plain top-k (B1 keeps one candidate
+    per bucket). The session index's nodes are counted among both; the
+    leaf question must return its leaf."""
+    import numpy as np
+
+    check(len(searches) == len(SERVER_SEARCHES), f"server: {len(searches)} B1 searches, not {len(SERVER_SEARCHES)}")
+    ids, session = [], []
+    pieces = []
+    for mod in retriever.modules:
+        index = retriever.indexes[mod]
+        matrix, row_map = index.matrix()
+        pieces.append(matrix)
+        ids += [index.node_of_row(int(r)).node_id for r in row_map]
+        session += [mod not in SERVER_MODULES] * len(row_map)
+    rows = torch.from_numpy(np.concatenate(pieces)).to("cuda", torch.bfloat16).float()
+    plain_row = {nid: i for i, nid in enumerate(ids)}
+    session = np.array(session)
+
+    def engine_node(r: int) -> str:
+        mod = retriever.modules[int(retriever._module_of_row[r])]
+        return retriever.indexes[mod].node_of_row(int(retriever._row_map[r])).node_id
+
+    out = []
+    for name, (q, k, vals, idx) in zip(SERVER_SEARCHES, searches):
+        scores = (q.float() @ rows.T)[0]
+        got = [engine_node(r) for r in idx[0].tolist()]
+        at = torch.tensor([plain_row[n] for n in got], device="cuda")
+        err = (vals[0] - scores[at]).abs().max().item()
+        want = scores.topk(k).indices.tolist()
+        recall = len({ids[i] for i in want} & set(got)) / k
+        out.append({"chat": name, "k": k, "max_abs_err": err, "recall": recall,
+                    "session_rows": int(session[at.tolist()].sum()), "plain_session_rows": int(session[want].sum())})
+        check(err <= TOPK_TOL and recall >= MIN_RECALL,
+              f"server: the {name}'s B1 search against the plain one: max |err| {err}, recall {recall}")
+    check(leaf_id in {engine_node(r) for r in searches[1][3][0].tolist()},
+          "server: the leaf question's search does not return its leaf")
+    return out
+
+
+async def drive_http(torch, app, passage: str, work: Path) -> dict:
+    """The server phase over HTTP and WebSocket: ``app`` served on
+    127.0.0.1 in this process, driven as the SPA drives it."""
+    from aiohttp import ClientSession, ClientTimeout, web
+
+    from tensortruth_tpu_torch.app.paths import get_session_dir
+    from tensortruth_tpu_torch.index.store import VectorIndex
+
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    host, port = runner.addresses[0][:2]
+    base = f"http://{host}:{port}"
+    out = {"address": base}
+    try:
+        async with ClientSession(timeout=ClientTimeout(total=900)) as http:
+            async def call(method, path, **kwargs):
+                async with http.request(method, base + path, **kwargs) as r:
+                    body = await r.json()
+                    check(r.status == 200, f"{method} {path}: HTTP {r.status} {body}")
+                    return body
+
+            check(await call("GET", "/health") == {"status": "ok"}, "/health")
+            devices = await call("GET", "/api/config/devices")
+            kind = torch.cuda.get_device_name(0)
+            check(devices["default_backend"] == "gpu" and [d["kind"] for d in devices["devices"]] == [kind],
+                  f"/api/config/devices: {devices}, card {kind}")
+            log(f"server: {base}, /api/config/devices {devices}")
+            sid = (await call("POST", "/api/sessions", json={"modules": SERVER_MODULES, "params": SERVER_PARAMS}))["id"]
+
+            t = time.perf_counter()
+            up = await call("POST", f"/api/sessions/{sid}/documents", json={"filename": UPLOAD_NAME, "text": upload_text()})
+            out["upload_s"], out["upload_chunks"] = time.perf_counter() - t, up["chunks"]
+            check(up["status"] == "success" and up["chunks"] > 0, f"upload: {up}")
+            # The leaf question: the upload's longest leaf, asked verbatim.
+            index = VectorIndex.load(get_session_dir(sid) / "index")
+            leaf = max((index.node_of_row(r) for r in range(index.n_alive)), key=lambda n: len(n.text.split()))
+            out["leaf_id"] = leaf.node_id
+            messages = ["/help", leaf.text.strip(), passage]
+
+            t = time.perf_counter()
+            rest = await call("POST", f"/api/sessions/{sid}/chat", json={"message": SERVER_QUESTION})
+            out["rest_chat_s"] = time.perf_counter() - t
+            check(rest["sources"] and rest["response"].startswith("stub answer"), f"REST chat: {rest}")
+            out["rest_sources"] = [len(rest["sources"]), from_upload(rest["sources"])]
+
+            out["messages"] = []
+            async with http.ws_connect(f"{base}/ws/chat/{sid}") as ws:
+                for text in messages:
+                    t = time.perf_counter()
+                    await ws.send_json({"message": text})
+                    seen, frames = {}, []
+                    while not frames or frames[-1]["type"] not in ("done", "error"):
+                        frames.append(await ws.receive_json(timeout=600))
+                        seen.setdefault(frames[-1]["type"], time.perf_counter() - t)
+                    check("error" not in seen, f"WS {text[:40]!r}: error frame {frames[-1]}")
+                    sources = next((f["sources"] for f in frames if f["type"] == "sources"), None)
+                    out["messages"].append({"message": text[:40], "sources_s": seen.get("sources"),
+                                            "done_s": seen["done"], "frames": sorted(seen),
+                                            "sources": None if sources is None else [len(sources), from_upload(sources)]})
+            for m in out["messages"][1:]:  # past /help
+                check(m["sources"] and m["sources"][1] > 0,
+                      f"WS {m['message']!r}: sources {m['sources']} (count, from the upload)")
+
+            before = torch.cuda.memory_allocated()
+            memory = await call("GET", "/api/system/memory")
+            after = torch.cuda.memory_allocated()
+            (dev,) = memory["devices"]
+            check(min(before, after) <= dev["bytes_in_use"] <= max(before, after)
+                  and dev["bytes_limit"] == torch.cuda.mem_get_info()[1],
+                  f"/api/system/memory {dev}: memory_allocated {before}..{after}")
+            out["memory"] = dev
+
+            await call("POST", "/api/system/profile/start", json={"log_dir": str(work / "profiles")})
+            profiled = await call("POST", f"/api/sessions/{sid}/chat", json={"message": SERVER_QUESTION + " (profiled)"})
+            check(profiled["sources"], "profiled chat: no sources")
+            stopped = await call("POST", "/api/system/profile/stop")
+            out["trace_b1_events"] = trace_names_b1(stopped["trace"])
+            out["trace_mb"] = Path(stopped["trace"]).stat().st_size / 2**20
+    finally:
+        await runner.cleanup()
+    return out
+
+
+def run_server_path(torch, work: Path) -> tuple[dict, dict, list[dict]]:
+    """The port's server on the card over the indexes the build path wrote,
+    over HTTP and WebSocket: a session over ``corpus`` with an uploaded
+    document, one REST chat, three WS messages (``/help``, a leaf of the
+    upload, a 640-token passage), the memory route, and one profiled chat.
+    Returns (the phase's numbers, B1 and B3 launches, B3's check at the
+    phase's shapes)."""
+    import asyncio
+
+    from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
+    from tensortruth_tpu_torch.models.manager import ModelManager
+    from tensortruth_tpu_torch.ops.attention import blocked_attention
+    from tensortruth_tpu_torch.ops.topk import fused_topk
+    from tensortruth_tpu_torch.server.app import create_app
+
+    app = create_app(config=TensorTruthTPUConfig.default(), device="cuda")
+    services = app["services"]
+    check(services.device == "cuda", f"server on {services.device}")
+    services.rag_service._llm_factory = lambda params: ServerLLM()
+    resident = ModelManager.get_instance()._embedder
+    passage = long_passage(ModelManager.get_instance().get_embedder().tokenizer)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_topk.launches = 0
+    blocked_attention.launches = 0
+    with timed_loads(services.rag_service) as loads, b3_forwards() as b3_inputs, b1_searches() as searches:
+        out = asyncio.run(drive_http(torch, app, passage, work))
+        torch.cuda.synchronize()
+    launches = {"fused_topk": fused_topk.launches, "blocked_attention": blocked_attention.launches}
+    engine = services.rag_service.engine
+    uploaded = [out["rest_sources"][1]] + [m["sources"][1] for m in out["messages"] if m["sources"]]
+    out["from_upload"] = uploaded
+    out.update(engine_load_s=loads, peak_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+               embedder_reused=ModelManager.get_instance()._embedder is resident)
+    log(f"server path (HTTP + WebSocket on {out['address']}): "
+        f"corpus + session index {engine.retriever.n_chunks} rows; upload of {UPLOAD_WORDS} words {out['upload_s']:.2f} s "
+        f"-> {out['upload_chunks']} chunks ({out['upload_chunks'] / out['upload_s']:.1f} chunks/s; embedder reused: "
+        f"{out['embedder_reused']}); engine loads (s): {', '.join(f'{s:.3f}' for s in loads)}; REST chat "
+        f"{out['rest_chat_s']:.3f} s ({out['rest_sources'][0]} sources, {out['rest_sources'][1]} from the upload)")
+    for m in out["messages"]:
+        at = "no sources" if m["sources_s"] is None else f"sources at {m['sources_s']:.3f} s"
+        log(f"  message {m['message']!r}: {at}, done at {m['done_s']:.3f} s; "
+            f"sources {m['sources']} (count, from the upload)")
+    log(f"  peak device memory {gib(out['peak_bytes'])}; launches {launches}; profiled chat's trace "
+        f"{out['trace_mb']:.1f} MiB, {out['trace_b1_events']} B1 kernel events; /api/system/memory {out['memory']}")
+    log("forwards at S >= 512 on the server path, (B, S): " + str([tuple(m.shape) for _, m in b3_inputs]))
+    check(sum(cfg.num_layers for cfg, _ in b3_inputs) == launches["blocked_attention"],
+          f"server: {len(b3_inputs)} forwards at S >= 512 do not account for {launches['blocked_attention']} B3 launches")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the server path")
+    check(engine is not None and engine.retriever._stacked.is_cuda and engine.retriever.use_fused
+          and len(engine.retriever.modules) == 2, "server: the session's engine is not corpus + its index, fused, on the card")
+    check(out["trace_b1_events"] > 0, "server: the profiled chat's trace does not name B1's kernel")
+    check(len(searches) == launches["fused_topk"], f"server: {len(searches)} B1 searches, {launches['fused_topk']} launches")
+    out["searches"] = check_server_searches(torch, engine.retriever, searches, out["leaf_id"])
+    for s in out["searches"]:
+        log(f"  B1 search of the {s['chat']} against the plain one: max |err| {s['max_abs_err']:.3g}, recall "
+            f"{s['recall']:.2f} of {s['k']}; session index rows {s['session_rows']} (plain: {s['plain_session_rows']})")
+    services.rag_service.clear_engines()
+    return out, launches, check_attention_on_path(torch, "server", b3_inputs)
+
+
+# -- phase 7: the capacity path ------------------------------------------------
 
 CAPACITY_QUESTIONS = [
     "How does the IVF tier pick the clusters it probes?",
@@ -1300,7 +1622,7 @@ def run_capacity_path(torch, work: Path) -> dict:
     return launches
 
 
-# -- phase 7: the probe path --------------------------------------------------
+# -- phase 8: the probe path --------------------------------------------------
 
 
 def run_probe_path() -> dict:
@@ -1367,6 +1689,9 @@ def main() -> None:
         build_launches, build_shapes = run_build_path(torch, card)
         log(f"build path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        server, server_launches, server_shapes = run_server_path(torch, work)
+        log(f"server path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         launches, main_shapes = run_main_path(torch, work)
         log(f"main path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -1378,19 +1703,26 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # B3 runs on two paths: the build's long leaves and the main path's long
-    # request; each was also held against its plain version at that path's
-    # shapes and masks.
+    # B3 runs on three paths: the build's long leaves, and the server's and
+    # the main path's long request; each was also held against its plain
+    # version at that path's shapes and masks. B1 serves the server path and
+    # the main path.
     b3 = measured["blocked_attention"]
-    b3["launches_by_path"] = {"build": build_launches, "main": launches["blocked_attention"]}
-    b3["by_path"] = {"build": build_shapes, "main": main_shapes}
-    b3["max_abs_err"] = max([b3["max_abs_err"]] + [e["max_abs_err"] for e in build_shapes + main_shapes])
-    launches["blocked_attention"] += build_launches
+    b3["launches_by_path"] = {"build": build_launches, "server": server_launches["blocked_attention"],
+                              "main": launches["blocked_attention"]}
+    b3["by_path"] = {"build": build_shapes, "server": server_shapes, "main": main_shapes}
+    b3["max_abs_err"] = max([b3["max_abs_err"]] + [e["max_abs_err"] for e in build_shapes + server_shapes + main_shapes])
+    launches["blocked_attention"] += build_launches + server_launches["blocked_attention"]
+    measured["fused_topk"]["launches_by_path"] = {"server": server_launches["fused_topk"], "main": launches["fused_topk"]}
+    launches["fused_topk"] += server_launches["fused_topk"]
     kernels = [
         {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}
         for name in KERNELS
     ]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"server": {k: server[k] for k in (
+        "upload_s", "upload_chunks", "engine_load_s", "rest_chat_s", "messages", "from_upload", "searches",
+        "peak_bytes", "launches", "trace_b1_events")}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -105,10 +105,12 @@ def _params_hash(modules: list[str], params: dict, paths: list[str]) -> str:
 
 
 class RAGService:
-    def __init__(self, config=None, llm_factory=None):
+    def __init__(self, config=None, llm_factory=None, device="cuda"):
         from tensortruth_tpu_torch.app.config import load_config
 
         self.config = config or load_config()
+        # Where load_engine puts an engine unless its caller names a device.
+        self.device = device
         self.chat_history_service = ChatHistoryService(self.config)
         self._engine: RAGEngine | None = None
         self._engine_hash: str | None = None
@@ -198,7 +200,7 @@ class RAGService:
                     return existing
             engine = load_engine_for_modules(
                 modules, params, extra_index_paths=extra_index_paths,
-                config=self.config, **kw,
+                config=self.config, **{"device": self.device, **kw},
             )
             # Publish BEFORE releasing build_lock: a waiter blocked on the
             # build lock wakes the instant it is released, and if the cache

@@ -7,7 +7,10 @@ jax-free host code it runs (``app/{config,paths,history_cleaner}``,
 ``services/{batcher,chat_history,condenser,feeder}``, ``tokenization/``
 and ``StageTimer`` of ``utils/profiling``; for the offline build path
 ``core/types``, ``app/sources``, ``utils/{pdf,validation,interactive}``,
-``indexing/``, ``web/html2md``, ``scrapers/`` and ``fetch_sources``). A
+``indexing/``, ``web/html2md``, ``scrapers/`` and ``fetch_sources``; for
+the server surface ``cli``, ``server/`` less its adapted files, the rest of
+``services/``, ``agents/``, ``extensions/``, ``mcp_servers/`` and ``web/``,
+``app/{file_utils,title_generation}`` and ``core/llama_cpp``). A
 copy differs from its original only in the package name, and gives the
 original's outputs: the same nodes from the chunker, the same token ids from
 the tokenizer (Python and C++ paths), the same config, prompts, histories
@@ -43,6 +46,21 @@ COPIED = [
     "web/__init__.py", "web/html2md.py", "fetch_sources.py",
     "scrapers/__init__.py", "scrapers/common.py", "scrapers/sphinx.py", "scrapers/doxygen.py",
     "scrapers/library.py", "scrapers/arxiv.py", "scrapers/book.py",
+    # the server surface (its adapted modules are held in test_torch_server.py)
+    "cli.py", "server/__init__.py", "server/schemas.py", "server/commands.py", "server/routes/__init__.py",
+    *[f"server/routes/{m}.py" for m in (
+        "arxiv", "commands", "documents", "extensions", "mcp_servers", "modules", "projects", "providers",
+        "rerankers", "sessions", "startup", "tasks", "tool_confirmations", "tools")],
+    *[f"services/{m}.py" for m in (
+        "session_service", "project_service", "document_index", "document_service", "image_service",
+        "chat_service", "startup_service", "synthesis_service", "task_runner", "tool_service",
+        "tool_confirmation_service", "mcp_server_service", "metadata_store", "orchestrator_service",
+        "orchestrator_tools")],
+    "app/file_utils.py", "app/title_generation.py", "core/llama_cpp.py",
+    "agents/__init__.py", "agents/base.py", "agents/function_agent.py", "agents/mcp_client.py", "agents/registry.py",
+    "extensions/__init__.py", "extensions/loader.py", "extensions/schema.py", "extensions/yaml_command.py",
+    "mcp_servers/__init__.py", "mcp_servers/web_tools_server.py",
+    "web/fetch.py", "web/links.py", "web/pipeline.py", "web/search.py", "web/synthesis.py",
 ]
 
 
@@ -59,15 +77,37 @@ def test_copy_differs_only_in_the_package_name(path):
 
 
 def test_stage_timer_is_the_original_and_the_device_trace_stays_behind():
+    """StageTimer is the original; the reference's device trace, on
+    jax.profiler, stays behind: the port's is its own, on torch.profiler
+    (test_torch_server.py names the differences)."""
     ref, port = _both("utils.profiling")
     assert inspect.getsource(port.StageTimer) == inspect.getsource(ref.StageTimer)
-    assert not hasattr(port, "device_trace")  # jax.profiler: the server surface's, not ported
+    assert "jax" in inspect.getsource(ref.device_trace) and "jax" not in inspect.getsource(port)
     timers = [mod.StageTimer() for mod in (ref, port)]
     for t in timers:
         for name in ("condense", "embed", "condense"):
             with t.stage(name):
                 pass
     assert [list(t.to_dict()) for t in timers] == [["condense", "embed", "total_ms"]] * 2
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """The port's device trace: a no-op without a log dir; with one, a Chrome
+    trace of the block's host ops (the card's kernels are not asked for here)."""
+    import json
+
+    import torch
+
+    from tensortruth_tpu_torch.utils.profiling import device_trace
+
+    with device_trace(None):
+        pass
+    assert not list(tmp_path.iterdir())
+    with device_trace(str(tmp_path / "prof"), cuda=False):
+        torch.ones(4).add_(1)
+    (trace,) = (tmp_path / "prof").iterdir()
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::add_" for e in events)
 
 
 # -- index: chunker, nodes, store, packed ---------------------------------------
@@ -473,3 +513,31 @@ def test_html_to_markdown_is_the_same():
     ref, port = _both("web.html2md")
     assert port.html_to_markdown(html) == ref.html_to_markdown(html) and "Arrays" in port.html_to_markdown(html)
     assert port.extract_title(html) == ref.extract_title(html)
+
+
+def test_papers_wizard_takes_arxiv_metadata_from_web_search(monkeypatch):
+    """With ``web/search.py`` in the port, the wizard's arXiv lookup fills
+    title, authors and year as the reference's does (the arXiv API answered
+    by a stub of ``requests.get``; no network)."""
+    import requests
+
+    atom = ('<feed xmlns="http://www.w3.org/2005/Atom"><entry><title>Attention Is\n  All You Need</title>'
+            "<published>2017-06-12T17:57:34Z</published><author><name>A. Vaswani</name></author>"
+            "<author><name>N. Shazeer</name></author><summary>Transformers.</summary></entry></feed>")
+
+    class Reply:
+        text = atom
+
+        def raise_for_status(self):
+            pass
+
+    monkeypatch.setattr(requests, "get", lambda url, params=None, timeout=None, **kw: Reply())
+    out = []
+    for mod in _both("utils.interactive"):
+        answers = iter(["attention", "1706.03762", "bogus-id", ""])
+        printed = []
+        out.append((mod.add_papers_interactive(input_fn=lambda _: next(answers), print_fn=printed.append), printed))
+    (want, want_printed), (got, got_printed) = out
+    assert got == want == ("attention", {"papers": {"1706.03762": {
+        "title": "Attention Is All You Need", "authors": ["A. Vaswani", "N. Shazeer"], "year": "2017"}}})
+    assert got_printed == want_printed

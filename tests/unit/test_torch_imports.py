@@ -6,7 +6,8 @@
   index through the port's ``build_db.main`` (a tiny CPU embedder seated in
   its model manager) and lists the sources through ``fetch_sources.main``:
   afterwards no module of the JAX package (``tensortruth_tpu`` or under it),
-  no ``jax`` and no ``triton`` is in ``sys.modules``.
+  no ``jax`` and no ``triton`` is in ``sys.modules``. The same holds after
+  a document upload and a WS chat through the port's app on the CPU.
 * No source file of the port and not ``chip_smoke.py`` imports the JAX
   package or jax, lazily or not (an AST walk over every import).
 * The CUDA-only wrappers (B1, B2, B3, B4, B5) raise on inputs their kernels
@@ -85,6 +86,63 @@ def test_every_module_imports_without_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     n, n_sources, foreign = out.stdout.strip().splitlines()[-1].split(" ", 2)
     assert int(n) >= 40 and int(n_sources) > 0
+    assert foreign == "[]", foreign
+
+
+_FRESH_APP = """
+import asyncio, pathlib, sys
+from aiohttp.test_utils import TestClient, TestServer
+from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
+from tensortruth_tpu_torch.core.providers import ChatDelta
+from tensortruth_tpu_torch.server.app import create_app
+
+class LLM:
+    def complete(self, prompt):
+        return "title"
+
+    def stream_chat(self, messages, system=None):
+        yield ChatDelta(text="answer")
+
+work = pathlib.Path(sys.argv[1])
+cfg = TensorTruthTPUConfig.default()
+cfg.rag.default_embedding_model, cfg.rag.default_reranker = "tiny-embedder", "tiny-reranker"
+app = create_app(data_dir=work / "data", config=cfg, device="cpu")
+app["services"].rag_service._llm_factory = lambda params: LLM()
+
+async def chat():
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    sid = (await (await client.post("/api/sessions", json={})).json())["id"]
+    r = await client.post(f"/api/sessions/{sid}/documents",
+                          json={"filename": "a.md", "text": "The engine merges leaves into parents. " * 60})
+    assert (await r.json())["status"] == "success"
+    ws = await client.ws_connect(f"/ws/chat/{sid}")
+    await ws.send_json({"message": "How are leaves merged?"})
+    frames = []
+    while not frames or frames[-1]["type"] not in ("done", "error"):
+        frames.append(await ws.receive_json(timeout=120))
+    await ws.close()
+    await client.close()
+    return frames
+
+frames = asyncio.run(chat())
+types = [f["type"] for f in frames]
+assert "sources" in types and types[-1] == "done", frames
+foreign = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("tensortruth_tpu", "jax", "jaxlib", "triton"))
+print(types.count("sources"), foreign)
+"""
+
+
+def test_cpu_chat_through_the_app_loads_no_jax(tmp_path):
+    """A document upload and a WS chat through the port's app on the CPU,
+    in a fresh interpreter: nothing of the JAX package, jax or triton loads."""
+    env = {**os.environ, "TENSOR_TRUTH_TPU_NATIVE_CACHE": str(tmp_path / "native")}
+    out = subprocess.run([sys.executable, "-c", _FRESH_APP, str(tmp_path)], capture_output=True, text=True,
+                         timeout=300, cwd=PKG.parent, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    n_sources, foreign = out.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert int(n_sources) == 1
     assert foreign == "[]", foreign
 
 
