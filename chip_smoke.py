@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's index build, server and online query path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's index build, server, online query path and mesh tier once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -79,14 +79,36 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    int8 variant and its grouping kernel) and answers one 32-query batch. Each checks its placement,
    its answers, a recall or self-retrieval rate, and that its kernel was
    launched while it was driven;
-8. probe path: the int8 tensor-core probe
+8. mesh path, over the capacity path's indexes and at the same widths, on
+   a 2 x 4 mesh whose eight slots all sit on the card (no number of it is a
+   multi-GPU figure): (a) the bf16 and (b) the int8 flat tier row-sharded
+   over its 4 shards through ``load_engine(mesh=...)``, 4 ``retrieve()``
+   requests each (the embedder and reranker data-parallel over the 8 slots,
+   B1 / B2 once per shard per request), the placement holding each shard
+   once (``torch.cuda.memory_allocated``), the DP query embeddings against
+   the single-device embedder's; (c) a ``MultiIndexEngine`` on the mesh with
+   ``ivf_threshold=262_144``: the cluster-sharded IVF over bf16 and over
+   int8 blocks, one 32-query batch each (B4, and over int8 blocks its
+   grouping, once per shard); (d) ``rag.mesh.enabled`` with the default
+   shape through ``RAGService.load_engine``: a 1 x 1 mesh over the main
+   path's corpus, 2 requests; (e) two processes on the card forming a gloo
+   world of 2 (``scripts/global_mesh_worker.py``, 2 shards each), each
+   reading and placing only its half of the rows through
+   ``GlobalMeshSearch``, bf16 then int8, the last rank serving. Each sharded
+   search is held against the same sharding through the plain versions
+   (TOPK_TOL / PROBE_TOL), and against the exact top-20 (MIN_RECALL) or by
+   self-retrieval; both ranks of (e) must return exactly (a)'s and (b)'s
+   top-20. B1, B2 and B4 must be launched while (a)-(d) are driven;
+9. probe path: the int8 tensor-core probe
    (``tensortruth_tpu_torch.scripts.probe_int8_mma.run()``) times B5's four
    variants at M=16384, K=1024, N=4096 and applies the reference's decision
    rule; B5 must have been launched, bf16 and int8, while it ran.
 
-The last four lines are the server phase's numbers (``{"server": ...}``),
-the card's name and power limit, a JSON object describing each kernel, and
-the final ``{"ok": true, "device": ...}`` line.
+The last five lines are the mesh phase's numbers (``{"mesh": ...}``:
+placement seconds and device bytes per tier, request times, the shapes each
+shard gave each kernel), the server phase's (``{"server": ...}``), the
+card's name and power limit, a JSON object describing each kernel, and the
+final ``{"ok": true, "device": ...}`` line.
 Nothing here imports JAX or the JAX package; the host code (index, chunker,
 config) is the port's own. All scratch files go to a temporary directory
 inside the checkout that is removed at exit.
@@ -279,12 +301,9 @@ def gib(nbytes: int) -> str:
 def check_topk_agrees(name: str, got, want) -> tuple[float, int]:
     """Values within TOPK_TOL; an index may differ only where the two scores
     at that rank are within it. Returns (max |err|, index swaps)."""
-    (vals, idx), (pvals, pidx) = got, want
-    diff = (vals - pvals).abs()
-    err = diff.max().item()
-    bad = int(((idx != pidx) & (diff > TOPK_TOL)).sum())
-    check(err <= TOPK_TOL and bad == 0, f"{name}: max |err| {err}, {bad} index mismatches")
-    return err, int((idx != pidx).sum())
+    from tensortruth_tpu_torch.ops.topk import check_topk_agrees as agrees
+
+    return agrees(name, got, want, TOPK_TOL)
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -1496,9 +1515,13 @@ def check_ivf_placement(torch, retriever, dtype, dim: int, name: str) -> None:
         + ", ".join(f"{k} {v:.2f}" for k, v in retriever.placement_seconds.items()))
 
 
-def run_capacity_path(torch, work: Path) -> dict:
+def run_capacity_path(torch, work: Path) -> tuple[dict, dict]:
     """(a) int8 flat tier, (b) IVF over bf16 blocks, (c) IVF over int8 blocks,
-    all at 2,097,152 rows x 1024. Returns the launches counted on each."""
+    all at 2,097,152 rows x 1024. Returns the launches counted on each, and
+    what the mesh path is held against: the single-device embedder, its
+    embeddings of the 8 questions (f32, and bf16 on the card), their exact
+    top-20 over the bf16 and the dequantised int8 corpus, and 32 corpus rows
+    (ids and f32 vectors) for self-retrieval."""
     import numpy as np
 
     from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
@@ -1542,7 +1565,8 @@ def run_capacity_path(torch, work: Path) -> dict:
     log("(a) request ms: " + ", ".join(f"{ms:.1f}" for ms in request_ms)
         + f"; launches {launches['fused_topk_int8']}")
 
-    q = torch.from_numpy(embedder.encode(CAPACITY_QUESTIONS * 2, is_query=True)).to("cuda", torch.bfloat16)
+    q_f32 = embedder.encode(CAPACITY_QUESTIONS * 2, is_query=True)
+    q = torch.from_numpy(q_f32).to("cuda", torch.bfloat16)
     _, got = fused_topk_int8(q, stacked, scales, 20, n_actual=CAPACITY_ROWS)
     deq = mm_f32(q, stacked.to(torch.bfloat16).t()) * scales  # B2's own scores, exactly
     _, exact = torch.sort(deq, dim=1, descending=True, stable=True)
@@ -1619,10 +1643,293 @@ def run_capacity_path(torch, work: Path) -> dict:
     log(f"(c) retrieve_batch of 32 queries: {batch_ms:.1f} ms; launches {launches['ivf_probe_int8']} "
         f"(grouping {launches['ivf_group_probes']})")
     check_self_retrieval(r._ivf, rows, vecs, r.ivf_nprobe, "(c)")
-    return launches
+    reference = {"embedder": embedder, "q_f32": q_f32, "q": q, "exact_bf16": exact_bf16, "exact_int8": exact_int8.clone(),
+                 "rows": rows, "vecs": vecs, "indexes": indexes}
+    return launches, reference
 
 
-# -- phase 8: the probe path --------------------------------------------------
+# -- phase 8: the mesh path ---------------------------------------------------
+
+# Every slot of the mesh sits on the one card: the shards run one after
+# another, so no number of this phase is a multi-GPU figure.
+MESH = {"n_shards": 4, "n_data": 2}
+# The DP query embeddings (each forward split into 8 slices of the batch)
+# against the single-device embedder's: the same bf16 model, whose GEMMs may
+# sum in another order at another batch size; unit-norm f32 outputs whose
+# components are about 0.03, so this is a few bf16 steps of one component.
+DP_EMBED_TOL = 1e-3
+MIN_DP_COSINE = 0.999
+WORKER_TIMEOUT_S = 300
+
+
+def recall_of(got, want) -> float:
+    """Share of ``want``'s ids (rows of (B, k)) that ``got`` holds too."""
+    return sum(len(set(x.tolist()) & set(y.tolist())) for x, y in zip(got, want)) / want.numel()
+
+
+def check_rows_agree(name: str, got, want) -> tuple[float, int]:
+    """(scores, row ids) of a sharded IVF search against its plain twin, as
+    :func:`check_topk_agrees` holds the flat tiers."""
+    import numpy as np
+
+    (vals, rows), (pvals, prows) = got, want
+    finite = np.isfinite(pvals)
+    check(np.array_equal(finite, np.isfinite(vals)), f"{name}: -inf slots differ")
+    diff = np.abs(np.where(finite, vals - pvals, 0.0))
+    bad = int(((rows != prows) & (diff > PROBE_TOL)).sum())
+    check(diff.max() <= PROBE_TOL and bad == 0, f"{name}: max |err| {diff.max()}, {bad} row mismatches")
+    return float(diff.max()), int((rows != prows).sum())
+
+
+def corpus_pieces(retriever):
+    """The engine's stack as row-contiguous f32 pieces, in order."""
+    for mod in retriever.modules:
+        yield from retriever.indexes[mod].iter_matrix_pieces()
+
+
+def flat_shard_shapes(corpus, n_actual: int, b: int) -> list[dict]:
+    """What each shard of a flat sharded corpus gives B1 / B2 for a batch of
+    ``b`` queries."""
+    return [{"shard": s, "q": [b, corpus.shape[1]], "rows": [corpus.per_shard, corpus.shape[1]],
+             "n_valid": int(min(max(n_actual - s * corpus.per_shard, 0), corpus.per_shard)),
+             "devices": [str(d) for d in by_dev]} for s, by_dev in sorted(corpus.parts.items())]
+
+
+def run_flat_mesh_tier(torch, svc, load, mesh, ref, dtype: str) -> dict:
+    """(a) bf16 / (b) int8: the flat tier sharded over ``mesh`` through
+    ``load_engine``, 4 ``retrieve()`` requests (DP embed -> B1 / B2 per shard
+    -> DP rerank), then its sharded search of the 8 questions against the
+    same sharding through the plain version and against the exact top-20."""
+    from tensortruth_tpu_torch.ops.topk import fused_topk, fused_topk_int8
+    from tensortruth_tpu_torch.parallel.sharded_topk import ShardedCorpus, shard_corpus_streaming, sharded_topk
+
+    name, kernel = ("(a)", fused_topk) if dtype == "bfloat16" else ("(b)", fused_topk_int8)
+    params = {"reranker_top_n": 5} | ({"corpus_dtype": "int8"} if dtype == "int8" else {})
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = svc.load_engine(["docs", "capacity"], params, mesh=mesh, **load)
+    load_s = time.perf_counter() - t0
+    r = engine.retriever
+    corpus = r._stacked
+    want_dtype = torch.int8 if dtype == "int8" else torch.bfloat16
+    check(isinstance(corpus, ShardedCorpus) and corpus.dtype == want_dtype and corpus.shape == (CAPACITY_ROWS, 1024)
+          and (corpus.scales is not None) == (dtype == "int8"), f"{name} corpus {corpus!r:.200}")
+    check(all(list(by_dev) == [torch.device("cuda", 0)] for by_dev in corpus.parts.values())
+          and len(corpus.parts) == MESH["n_shards"], f"{name}: not one buffer per shard on the card")
+    row_bytes = CAPACITY_ROWS * 1024 * corpus.dtype.itemsize + (CAPACITY_ROWS * 4 if dtype == "int8" else 0)
+    check(corpus.nbytes() == row_bytes, f"{name}: {corpus.nbytes()} corpus bytes, one copy is {row_bytes}")
+    check(engine.embedder.mesh is mesh and engine.reranker.mesh is mesh and engine.pipeline is None,
+          f"{name}: the models are not on the mesh, or the fused query step is on")
+    log(f"{name} {dtype} flat tier on the {MESH['n_data']} x {MESH['n_shards']} mesh: loaded in {load_s:.1f} s "
+        f"(shard {r.placement_seconds['shard']:.2f} s); corpus {gib(corpus.nbytes())}, "
+        f"{gib(torch.cuda.memory_allocated() - before)} more allocated")
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    request_ms = drive_requests(torch, svc, CAPACITY_QUESTIONS)
+    launches = kernel.launches
+    check(launches == MESH["n_shards"] * len(CAPACITY_QUESTIONS),
+          f"{name}: {launches} launches of {kernel.__name__}, wanted one per shard per request")
+    log(f"{name} request ms: " + ", ".join(f"{ms:.1f}" for ms in request_ms) + f"; launches {launches}")
+
+    q = ref["q"]
+    kw = dict(k=20, n_actual=CAPACITY_ROWS, use_fused=True)
+    got = sharded_topk(q, corpus, **kw)
+    err, swaps = check_topk_agrees(f"{name} sharded {kernel.__name__}", got, sharded_topk(q, corpus, plain=True, **kw))
+    exact = ref["exact_int8"] if dtype == "int8" else ref["exact_bf16"]
+    rec = recall_of(got[1].cpu(), exact.cpu())
+    check(rec >= MIN_RECALL, f"{name}: sharded top-20 recall {rec} < {MIN_RECALL} against the exact top-20")
+    ms, plain_ms = in_turns(torch, lambda: sharded_topk(q, corpus, **kw), lambda: sharded_topk(q, corpus, plain=True, **kw))
+    # The same search with the host ahead of the card, and one shard's launch
+    # alone beside its bound: what the search costs beyond its launches.
+    queued = queued_ms(torch, lambda: sharded_topk(q, corpus, **kw))
+    rows, scales = corpus.parts[0][mesh.lead], corpus.scales[0][mesh.lead] if dtype == "int8" else None
+    shard_ms = cuda_ms(torch, lambda: kernel(q, rows, scales, 20) if scales is not None else kernel(q, rows, 20))
+    shard_bound = bound(nbytes(q, rows) + (nbytes(scales) if scales is not None else 0), 2 * q.numel() * rows.shape[0],
+                        "int8" if dtype == "int8" else "bf16")
+    log(f"{name} sharded search of 8 queries: {ms:.4f} ms device ({queued:.4f} ms queued behind a sleep; "
+        f"{MESH['n_shards']} launches, one after another; one shard's launch {shard_ms:.4f} ms, bound "
+        f"{shard_bound['bound_ms']:.4f} ms), plain {plain_ms:.4f} ms; max |err| {err:.2e} ({swaps} index swaps "
+        f"within tolerance); recall {rec:.4f} against the exact top-20")
+    out = {"load_s": load_s, "placement_s": r.placement_seconds, "device_bytes": corpus.nbytes(),
+           "request_ms": request_ms, "launches": launches, "search_ms": ms, "search_queued_ms": queued,
+           "plain_ms": plain_ms, "shard_ms": shard_ms, "shard_bound": shard_bound, "max_abs_err": err,
+           "recall": rec, "shards": flat_shard_shapes(corpus, CAPACITY_ROWS, 1), "ids": got[1].cpu(),
+           "scores": got[0].cpu()}
+    if dtype == "bfloat16":
+        # The placement alone: the 2 x 4 mesh holds each row shard once.
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        again, _ = shard_corpus_streaming(corpus_pieces(r), CAPACITY_ROWS, corpus.shape[1], mesh, torch.bfloat16, 2048)
+        grew = torch.cuda.memory_allocated() - before
+        check(grew == corpus.nbytes(), f"{name}: placing the rows again allocated {grew} bytes, not one copy")
+        del again
+        out["placement_allocated"] = grew
+        # the DP query embeddings against the single-device embedder's
+        dp = engine.embedder.encode(CAPACITY_QUESTIONS * 2, is_query=True)
+        diff = float(abs(dp - ref["q_f32"]).max())
+        cos = float((dp * ref["q_f32"]).sum(axis=1).min())
+        check(diff <= DP_EMBED_TOL and cos >= MIN_DP_COSINE, f"{name}: DP embeddings off by {diff}, cosine {cos}")
+        log(f"{name} DP query embeddings (8 slices of each batch) against the single-device embedder: "
+            f"max |diff| {diff:.2e}, least cosine {cos:.6f}")
+        out["dp_embed"] = {"max_abs_diff": diff, "min_cosine": cos}
+    svc.clear_engines()
+    return out
+
+
+def run_ivf_mesh_tier(torch, mesh, ref, dtype: str) -> dict:
+    """(c) a ``MultiIndexEngine`` on the mesh with ``ivf_threshold`` lowered
+    so that the cluster-sharded IVF builds: one 32-query batch (B4, over int8
+    blocks with its grouping, on each shard's own clusters), then the
+    sharded search against the plain probe of every shard, and
+    self-retrieval."""
+    import numpy as np
+
+    from tensortruth_tpu_torch.ops.ivf import ShardedIVF, group_probes, ivf_search_sharded, probe_scores
+    from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
+
+    name = f"(c) {dtype}"
+    int8 = dtype == "int8"
+    t0 = time.perf_counter()
+    r = MultiIndexEngine(ref["indexes"], mesh=mesh, corpus_dtype=dtype, ivf_threshold=262_144)
+    build_s = time.perf_counter() - t0
+    sidx = r._ivf_sharded
+    check(isinstance(sidx, ShardedIVF) and r._stacked is sidx and sidx.quantized == int8
+          and sidx.cpl == r.ivf_clusters // MESH["n_shards"], f"{name}: the engine did not take the sharded IVF tier")
+    placed = sidx.row_map[sidx.row_map >= 0]
+    check(np.array_equal(np.sort(placed), np.arange(CAPACITY_ROWS)), f"{name}: rows not placed exactly once")
+    log(f"{name} sharded IVF: built in {build_s:.1f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in r.placement_seconds.items())
+        + f"); {MESH['n_shards']} shards x {sidx.cpl} clusters x {sidx.rows_per_cluster} rows, {gib(sidx.nbytes())}")
+    torch.cuda.synchronize()
+    probe_scores.launches = probe_scores.launches_int8 = group_probes.launches = 0
+    t = time.perf_counter()
+    results = r.retrieve_batch(ref["vecs"])
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t) * 1e3
+    launches = ({"ivf_probe_int8": probe_scores.launches_int8, "ivf_group_probes": group_probes.launches} if int8
+                else {"ivf_probe": probe_scores.launches})
+    check(all(n == MESH["n_shards"] for n in launches.values()), f"{name}: launches {launches}, wanted one per shard")
+    check(len(results) == 32 and all(results), f"{name}: a query of the batch got no nodes")
+    nprobe = r.ivf_nprobe
+    got = ivf_search_sharded(sidx, ref["vecs"], 20, nprobe=nprobe)
+    err, swaps = check_rows_agree(name, got, ivf_search_sharded(sidx, ref["vecs"], 20, nprobe=nprobe, plain=True))
+    rate = float((ivf_search_sharded(sidx, ref["vecs"], 1, nprobe=nprobe)[1][:, 0] == ref["rows"]).mean())
+    check(rate >= MIN_SELF_RETRIEVAL, f"{name}: self-retrieval {rate} < {MIN_SELF_RETRIEVAL}")
+    log(f"{name} retrieve_batch of 32 queries: {batch_ms:.1f} ms; launches {launches}; against the plain probe: "
+        f"max |err| {err:.2e} ({swaps} row swaps within tolerance); self-retrieval {rate:.4f}")
+    shards = [{"shard": s, "probe": [32, min(nprobe, sidx.cpl)], "centroids": list(arrays[0].shape),
+               "blocks": list(arrays[1].shape), "dtype": str(arrays[1].dtype)}
+              for s, by_dev in sorted(sidx.parts.items()) for arrays in by_dev.values()]
+    out = {"build_s": build_s, "placement_s": r.placement_seconds, "device_bytes": sidx.nbytes(), "batch_ms": batch_ms,
+           "launches": launches, "max_abs_err": err, "self_retrieval": rate, "shards": shards}
+    del r, sidx
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_config_mesh(torch, work: Path) -> dict:
+    """(d) ``rag.mesh.enabled`` with the default shape through
+    ``RAGService.load_engine``: a 1 x 1 mesh on the card over the main
+    path's 262,144-row corpus, 2 requests, and its sharded search against
+    the plain version."""
+    from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
+    from tensortruth_tpu_torch.ops.topk import fused_topk
+    from tensortruth_tpu_torch.parallel.sharded_topk import sharded_topk
+    from tensortruth_tpu_torch.services.rag_service import RAGService
+
+    cfg = TensorTruthTPUConfig.default()
+    cfg.rag.mesh = {"enabled": True, "n_data": 1, "n_shards": 0}
+    svc = RAGService(config=cfg, llm_factory=lambda params: StubLLM())
+    t0 = time.perf_counter()
+    engine = svc.load_engine(["docs", "synthetic"], {"reranker_top_n": 5}, indexes_dir=work / "indexes")
+    load_s = time.perf_counter() - t0
+    r = engine.retriever
+    check(r.mesh is not None and r.mesh.shape == {"data": 1, "shards": 1} and r.mesh.lead == torch.device("cuda", 0)
+          and r._stacked.shape == (CORPUS_ROWS, 1024), f"(d) mesh {r.mesh}, corpus {getattr(r._stacked, 'shape', None)}")
+    torch.cuda.synchronize()
+    fused_topk.launches = 0
+    request_ms = drive_requests(torch, svc, CAPACITY_QUESTIONS[:2])
+    launches = fused_topk.launches
+    check(launches == 2, f"(d) {launches} launches of fused_topk, wanted 2")
+    q = torch.from_numpy(engine.embedder.encode(CAPACITY_QUESTIONS[:2], is_query=True)).to("cuda", torch.bfloat16)
+    kw = dict(k=20, n_actual=CORPUS_ROWS, use_fused=True)
+    err, _ = check_topk_agrees("(d) sharded fused_topk", sharded_topk(q, r._stacked, **kw),
+                               sharded_topk(q, r._stacked, plain=True, **kw))
+    log(f"(d) rag.mesh.enabled, default shape: {r.mesh}; loaded in {load_s:.1f} s; request ms "
+        + ", ".join(f"{ms:.1f}" for ms in request_ms) + f"; launches {launches}; max |err| {err:.2e}")
+    svc.clear_engines()
+    return {"load_s": load_s, "request_ms": request_ms, "launches": launches, "max_abs_err": err,
+            "shards": flat_shard_shapes(r._stacked, CORPUS_ROWS, 1)}
+
+
+def run_global_mesh(torch, work: Path, flat: dict, q_f32) -> dict:
+    """(e) two processes on the card form a gloo world of 2, each with a
+    local mesh of 2 shards (4 in all, the (a) / (b) sharding): each reads
+    and places only its half of the rows through ``GlobalMeshSearch``, bf16
+    then int8, and the last rank serves the 8 questions. Both ranks must
+    return the same ids and scores as each other and as the single-process
+    sharded searches of (a) and (b)."""
+    import numpy as np
+
+    from tensortruth_tpu_torch.scripts.global_mesh_worker import run_world
+
+    world_dir = work / "mesh_world"
+    world_dir.mkdir()
+    np.save(world_dir / "q.npy", q_f32)
+    model_dir = work / "indexes" / "bge-m3"
+    args = ["--backend", "gloo", "--device", "cuda:0", "--local-shards", "2", "--index", str(model_dir / "library_docs"),
+            "--index", str(model_dir / "capacity"), "--queries", str(world_dir / "q.npy"), "--k", "20",
+            "--dtype", "bfloat16", "--fused", "--timeout", str(WORKER_TIMEOUT_S / 4)]
+    t0 = time.perf_counter()
+    # a worker prints its stacks and exits after 4 x its --timeout
+    reports = run_world([args, args], world_dir, timeout=WORKER_TIMEOUT_S + 30)
+    wall_s = time.perf_counter() - t0
+    for dtype, key in (("bfloat16", "a"), ("int8", "b")):
+        ids, scores = (np.asarray(reports[1]["searches"][dtype][f]) for f in ("ids", "scores"))
+        check(all(rep["searches"][dtype] == reports[1]["searches"][dtype] for rep in reports),
+              f"(e) {dtype}: the two ranks disagree")
+        check(np.array_equal(ids, flat[key]["ids"].numpy()) and np.array_equal(scores, flat[key]["scores"].numpy()),
+              f"(e) {dtype}: the global mesh's top-20 differs from the single-process sharded search")
+    check([rep["row_range"] for rep in reports] == [[0, CAPACITY_ROWS // 2, CAPACITY_ROWS],
+                                                    [CAPACITY_ROWS // 2, CAPACITY_ROWS, CAPACITY_ROWS]],
+          f"(e) row ranges {[rep['row_range'] for rep in reports]}")
+    for rep in reports:
+        check(rep["launches"]["fused_topk"] == 2 and rep["launches"]["fused_topk_int8"] == 2,
+              f"(e) rank {rep['rank']} launches {rep['launches']}, wanted 2 per search")
+    log(f"(e) gloo world of 2 on the card: {wall_s:.1f} s wall; per rank seconds "
+        + "; ".join(f"{rep['rank']}: " + ", ".join(f"{k} {v:.2f}" for k, v in rep["seconds"].items()) for rep in reports)
+        + "; both ranks return (a)'s and (b)'s top-20 exactly")
+    return {"wall_s": wall_s, "seconds": [rep["seconds"] for rep in reports], "launches": [rep["launches"] for rep in reports],
+            "row_ranges": [rep["row_range"] for rep in reports]}
+
+
+def run_mesh_path(torch, work: Path, ref: dict) -> tuple[dict, dict]:
+    """(a)-(e) over the capacity path's 2,097,152-row indexes, at BGE-M3 /
+    bge-reranker-v2-m3 width. Returns the phase's numbers and the launches
+    counted while (a)-(d) were driven."""
+    from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
+    from tensortruth_tpu_torch.parallel import make_mesh
+    from tensortruth_tpu_torch.services.rag_service import RAGService
+
+    mesh = make_mesh(**MESH, devices=[torch.device("cuda", 0)] * (MESH["n_shards"] * MESH["n_data"]))
+    svc = RAGService(config=TensorTruthTPUConfig.default(), llm_factory=lambda params: StubLLM())
+    load = dict(indexes_dir=work / "indexes")
+    flat = {"a": run_flat_mesh_tier(torch, svc, load, mesh, ref, "bfloat16"),
+            "b": run_flat_mesh_tier(torch, svc, load, mesh, ref, "int8")}
+    torch.cuda.empty_cache()
+    ivf = {dtype: run_ivf_mesh_tier(torch, mesh, ref, dtype) for dtype in ("bfloat16", "int8")}
+    config = run_config_mesh(torch, work)
+    torch.cuda.empty_cache()
+    workers = run_global_mesh(torch, work, flat, ref["q_f32"])
+    launches = {"fused_topk": flat["a"]["launches"] + config["launches"], "fused_topk_int8": flat["b"]["launches"],
+                **ivf["bfloat16"]["launches"], **ivf["int8"]["launches"]}
+    for part in flat.values():
+        del part["ids"], part["scores"]
+    return {"mesh": str(mesh), "flat": flat, "ivf": ivf, "config": config, "global": workers}, launches
+
+
+# -- phase 9: the probe path --------------------------------------------------
 
 
 def run_probe_path() -> dict:
@@ -1678,6 +1985,7 @@ def main() -> None:
         built = f"compiled in {_build.build_seconds:.1f} s" if _build.build_seconds else "already built"
         log(f"build: {_build.library_path().relative_to(ROOT)} {built}, ready in {time.perf_counter() - t0:.1f} s")
 
+        t0 = time.perf_counter()
         measured = {
             "fused_topk": check_fused_topk(torch),
             "fused_topk_int8": check_fused_topk_int8(torch),
@@ -1685,6 +1993,7 @@ def main() -> None:
             **check_ivf_probe(torch),
             **check_tc_matmul(torch),
         }
+        log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         build_launches, build_shapes = run_build_path(torch, card)
         log(f"build path: {time.perf_counter() - t0:.1f} s")
@@ -1695,8 +2004,13 @@ def main() -> None:
         launches, main_shapes = run_main_path(torch, work)
         log(f"main path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        launches |= run_capacity_path(torch, work)
+        capacity_launches, reference = run_capacity_path(torch, work)
+        launches |= capacity_launches
         log(f"capacity path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh, mesh_launches = run_mesh_path(torch, work, reference)
+        del reference
+        log(f"mesh path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         launches |= run_probe_path()
         log(f"probe path: {time.perf_counter() - t0:.1f} s")
@@ -1715,11 +2029,22 @@ def main() -> None:
     launches["blocked_attention"] += build_launches + server_launches["blocked_attention"]
     measured["fused_topk"]["launches_by_path"] = {"server": server_launches["fused_topk"], "main": launches["fused_topk"]}
     launches["fused_topk"] += server_launches["fused_topk"]
+    # The mesh path runs B1, B2 and B4 once per shard, on the shapes its
+    # shards give them (``mesh_shards``).
+    shards = {"fused_topk": mesh["flat"]["a"]["shards"], "fused_topk_int8": mesh["flat"]["b"]["shards"],
+              "ivf_probe": mesh["ivf"]["bfloat16"]["shards"], "ivf_probe_int8": mesh["ivf"]["int8"]["shards"],
+              "ivf_group_probes": mesh["ivf"]["int8"]["shards"]}
+    for name, n in mesh_launches.items():
+        by_path = measured[name].setdefault("launches_by_path", {"capacity": launches[name]})
+        by_path["mesh"] = n
+        measured[name]["mesh_shards"] = shards[name]
+        launches[name] += n
     kernels = [
         {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}
         for name in KERNELS
     ]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"server": {k: server[k] for k in (
         "upload_s", "upload_chunks", "engine_load_s", "rest_chat_s", "messages", "from_upload", "searches",
         "peak_bytes", "launches", "trace_b1_events")}}))

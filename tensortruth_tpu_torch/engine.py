@@ -3,7 +3,10 @@
 Port of ``tensortruth_tpu/engine.py``: module index dirs (the shared
 ``VectorIndex`` format) stack into one ``MultiIndexEngine`` on ``device``;
 the embedder and reranker come from the port's ``ModelManager``; adaptive
-top-k ``similarity_top_k = max(5, 2 * reranker_top_n)``.
+top-k ``similarity_top_k = max(5, 2 * reranker_top_n)``. On a mesh (the
+``mesh`` argument, or ``rag.mesh.enabled`` in the config) the engine shards
+the corpus over it and the embedder and reranker run data-parallel over
+it; ``device`` becomes the mesh's lead device.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from pathlib import Path
 
 from tensortruth_tpu_torch.index.store import VectorIndex, resolve_module_dir, sanitize_model_id
 from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
+from tensortruth_tpu_torch.parallel.mesh import make_mesh
 from tensortruth_tpu_torch.pipeline import QueryPipeline
 from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
 
@@ -54,15 +58,18 @@ def load_engine_for_modules(
     """Load module indexes + models onto ``device`` into a ready RAGEngine.
 
     ``extra_index_paths`` are session/project document indexes (absolute
-    VectorIndex dirs) attached beside catalog modules. A mesh (argument or
-    ``rag.mesh.enabled``) is not ported yet and raises."""
+    VectorIndex dirs) attached beside catalog modules. ``rag.mesh.enabled``
+    builds a mesh of the configured shape over every CUDA card when no
+    ``mesh`` is passed."""
     from tensortruth_tpu_torch.app.config import load_config
     from tensortruth_tpu_torch.app.paths import get_base_indexes_dir
 
     params = dict(params or {})
     config = config or load_config()
-    if mesh is not None or config.rag.mesh.get("enabled"):
-        raise NotImplementedError("multi-device engine is not ported yet (ROADMAP A15)")
+    if mesh is None and config.rag.mesh.get("enabled"):
+        mesh = make_mesh(n_shards=config.rag.mesh.get("n_shards") or None, n_data=config.rag.mesh.get("n_data", 1))
+    if mesh is not None:
+        device = mesh.lead
     embedding_model = params.get("embedding_model", config.rag.default_embedding_model)
     reranker_model = params.get("reranker_model", config.rag.default_reranker)
     top_n = params.get("reranker_top_n", config.rag.default_top_n)
@@ -106,8 +113,9 @@ def load_engine_for_modules(
             seq_buckets=tuple(mc.seq_buckets) if mc.seq_buckets else None,
         ),
         device=device,
+        mesh=mesh,
     )
-    reranker = manager.get_reranker(ModelSpec(reranker_model), device=device) if use_reranker else None
+    reranker = manager.get_reranker(ModelSpec(reranker_model), device=device, mesh=mesh) if use_reranker else None
 
     # An index embedded with one GELU flavour, queried with the other, carries
     # ~1e-3 activation error: detectable, not fatal.
@@ -126,6 +134,7 @@ def load_engine_for_modules(
         similarity_top_k=adaptive_top_k(top_n),
         balance_strategy=params.get("balance_strategy", config.rag.default_balance_strategy),
         device=device,
+        mesh=mesh,
         use_fused=config.rag.use_fused_topk,
         corpus_dtype=params.get("corpus_dtype", config.rag.corpus_dtype),
     )

@@ -390,6 +390,14 @@ def is_packed(path: str | Path) -> bool:
     if (p / "manifest.json").exists():
         return True
     old = Path(path) / (PACKED_DIR + ".old")
+    if not (old / "manifest.json").exists():
+        # Nothing to heal: take no exclusive lock. VectorIndex.load calls
+        # this under its shared guard, and two processes loading one
+        # unpacked module would each wait to upgrade to exclusive for the
+        # other's shared lock (they did, on a filesystem whose flock does
+        # not drop the shared lock first). A writer cannot be mid-swap
+        # while a reader holds the shared guard.
+        return False
     with _swap_guard(path):  # never heal while pack_index is mid-swap
         if (old / "manifest.json").exists() and not p.exists():
             import os

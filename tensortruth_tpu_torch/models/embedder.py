@@ -10,6 +10,10 @@ staging with non-blocking copies (:func:`upload`), and each slab's
 embeddings come down into pinned memory behind a CUDA event that the host
 waits on only when it drains that slab, one slab behind the launch front.
 
+On a mesh (``Embedder(mesh=...)``, :func:`make_dp_forward`) every forward is
+data-parallel over the mesh's slots, and the batch bucket rounds up to a
+multiple of the mesh size, as the reference's does.
+
 The bucket sets are the reference's, tuned on a TPU and not yet re-measured
 on the H100.
 """
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from tensortruth_tpu_torch.models.xlmr import XLMRConfig, XLMRModel, cls_embed, use_approx_gelu
+from tensortruth_tpu_torch.parallel.mesh import on
 
 
 def bucket(value: int, buckets: Sequence[int]) -> int:
@@ -62,6 +67,36 @@ def to_host_async(x: torch.Tensor):
     return wait
 
 
+def make_dp_forward(fn, model: XLMRModel, mesh=None):
+    """``(forward(*host arrays) -> tensor, batch multiple)`` for
+    ``fn(model, *device arrays)``.
+
+    Without a mesh: one forward on the model's device. On a mesh the
+    parameters are replicated once per distinct device (the model itself
+    serves its own device), the batch (a multiple of the mesh size) splits
+    into one slice per slot, each slice is forwarded on its slot's device,
+    and the outputs are gathered on the lead device. Nothing waits for the
+    device between the launches: the slices go up through pinned memory
+    (:func:`upload`) and the gathers are device copies."""
+    if mesh is None:
+        dev = model.device
+        return (lambda *arrays: fn(model, *(upload(a, dev) for a in arrays))), 1
+    replicas = {d: model if d == model.device else model.replicate(d) for d in mesh.distinct}
+    slots = [replicas[d] for d in mesh.flat]
+    lead = mesh.lead
+
+    def forward(*arrays):
+        per = arrays[0].shape[0] // len(slots)
+        outs = []
+        for i, replica in enumerate(slots):
+            dev = replica.device
+            with on(dev):
+                outs.append(fn(replica, *(upload(a[i * per : (i + 1) * per], dev) for a in arrays)))
+        return torch.cat([o.to(lead, non_blocking=True) for o in outs])
+
+    return forward, len(slots)
+
+
 def pad_batch(ids: np.ndarray, mask: np.ndarray, sel: np.ndarray, bsz: int, seq: int, pad_id: int):
     """Rows ``sel`` of (ids, mask) cut to ``seq`` and padded to ``bsz`` rows."""
     ids_p = np.full((bsz, seq), pad_id, dtype=np.int32)
@@ -72,7 +107,8 @@ def pad_batch(ids: np.ndarray, mask: np.ndarray, sel: np.ndarray, bsz: int, seq:
 
 
 class Embedder:
-    """Holds the encoder on its device; encodes host-side text."""
+    """Holds the encoder on its device (or replicated over a mesh, the
+    model on its lead device); encodes host-side text."""
 
     def __init__(
         self,
@@ -82,6 +118,7 @@ class Embedder:
         batch_buckets: Sequence[int] = (16, 64, 256),
         seq_buckets: Sequence[int] = (128, 256, 384, 512, 1024, 2048),
         query_prefix: str = "",
+        mesh=None,
     ):
         self.model = model
         self.cfg: XLMRConfig = model.cfg
@@ -90,6 +127,8 @@ class Embedder:
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.seq_buckets = tuple(sorted(set(min(b, max_length) for b in seq_buckets)))
         self.query_prefix = query_prefix
+        self.mesh = mesh
+        self._fwd, self._batch_multiple = make_dp_forward(cls_embed, model, mesh)
 
     @classmethod
     def random_init(
@@ -143,8 +182,9 @@ class Embedder:
                     sel = order[start : start + max_batch]
                     seq = bucket(int(lengths[sel].max()), self.seq_buckets)
                     bsz = bucket(len(sel), self.batch_buckets)
+                    bsz = -(-bsz // self._batch_multiple) * self._batch_multiple  # DP
                     ids_p, mask_p = pad_batch(ids, mask, sel, bsz, seq, self.tokenizer.pad_id)
-                    embs.append(cls_embed(self.model, *self.to_device(ids_p, mask_p))[: len(sel)])
+                    embs.append(self._fwd(ids_p, mask_p)[: len(sel)])
                     sels.append(slab_start + sel)
                 # Drain one slab behind the launch front: the current slab is
                 # queued on the device (its copy back behind it) while the

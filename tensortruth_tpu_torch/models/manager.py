@@ -2,13 +2,16 @@
 
 Port of ``tensortruth_tpu/models/manager.py``: a thread-safe singleton;
 identity key = (model id, dtype, max length, checkpoint dir, tokenizer,
-buckets, device), a mismatch swaps the resident model; loading resolves a
+buckets, placement), a mismatch swaps the resident model; loading resolves a
 local HF checkpoint (``discover_checkpoint`` order), else random-init weights
-at the architecture's full width. The device takes the place of the
-reference's mesh, under the same reuse rule: ``device=None`` means "don't
-care", so a caller that names none reuses the resident model wherever it
-is (else loads on ``cuda``); a named device (``cuda`` meaning the current
-card, ``cuda:N``) must match. Nothing moves to another device on its own.
+at the architecture's full width. The placement is the device, or on a mesh
+the mesh's shape and slot devices (the reference's ``_mesh_desc``: a value,
+so a config-driven mesh built anew per engine load reuses the model). The
+reference's reuse rule holds for both: with neither ``device`` nor ``mesh``
+("don't care") the resident model is reused wherever it is (else loaded on
+``cuda``); a named device (``cuda`` meaning the current card, ``cuda:N``)
+or a mesh must match. On a mesh the model loads on its lead device and is
+replicated to the others by the runtime. Nothing moves on its own.
 The reference's XLA compilation-cache helpers have no counterpart here:
 PyTorch runs eagerly.
 """
@@ -226,8 +229,9 @@ class ModelManager:
             )
         return default
 
-    def _load(self, spec: ModelSpec, device, role: str):
-        """Build an Embedder or Reranker for ``spec`` on ``device``."""
+    def _load(self, spec: ModelSpec, device, role: str, mesh=None):
+        """Build an Embedder or Reranker for ``spec`` on ``device`` (a mesh's
+        lead device, the runtime replicating it over ``mesh``)."""
         if role == "embedder":
             cfg = self._resolve_arch(spec, _EMBEDDER_ARCHS, BGE_M3_CONFIG, 0)
             runtime = Embedder
@@ -245,7 +249,7 @@ class ModelManager:
         tokenizer = load_tokenizer(
             spec.tokenizer_path, sep_style="bert" if cfg.position_style == "bert" else "xlmr"
         )
-        kw = dict(max_length=spec.max_length, **spec.bucket_kwargs())
+        kw = dict(max_length=spec.max_length, mesh=mesh, **spec.bucket_kwargs())
         if spec.local_dir:
             from tensortruth_tpu_torch.models.convert import load_local_checkpoint
 
@@ -257,43 +261,38 @@ class ModelManager:
         return model
 
     @staticmethod
-    def _key_matches(resident_key, spec: ModelSpec, device) -> bool:
-        """device=None means "don't care": callers off the engine path
-        (document uploads, web reranking) reuse the resident model rather
-        than load a second copy of it."""
+    def _key_matches(resident_key, spec: ModelSpec, device, mesh=None) -> bool:
+        """Neither device nor mesh means "don't care": callers off the engine
+        path (document uploads, web reranking) reuse the resident model
+        rather than load a second copy of it."""
         if resident_key is None:
             return False
+        if mesh is not None:
+            return resident_key == (*spec.key(), mesh.describe())
         if device is None:
             return resident_key[:-1] == spec.key()
         return resident_key == (*spec.key(), str(_device_of(device)))
 
-    def get_embedder(self, spec: ModelSpec | None = None, device=None) -> Embedder:
-        spec = self._resolve_spec(spec or ModelSpec(DEFAULT_EMBEDDING_MODEL))
+    def _get(self, role: str, spec: ModelSpec, device, mesh):
+        """The resident ``role`` model if its key matches, else load it."""
         with self._lock:
-            if self._embedder is not None and self._key_matches(self._embedder_key, spec, device):
-                return self._embedder
-            device = _device_of(device)
-            key = (*spec.key(), str(device))
-            if self._embedder is not None:
-                logger.info("swapping embedder %s -> %s", self._embedder_key, key)
-                self._embedder = None  # release device memory before loading
-            self._embedder = self._load(spec, device, "embedder")
-            self._embedder_key = key
-            return self._embedder
+            model, key = getattr(self, f"_{role}"), getattr(self, f"_{role}_key")
+            if model is not None and self._key_matches(key, spec, device, mesh):
+                return model
+            device = mesh.lead if mesh is not None else _device_of(device)
+            new_key = (*spec.key(), mesh.describe() if mesh is not None else str(device))
+            if model is not None:
+                logger.info("swapping %s %s -> %s", role, key, new_key)
+                setattr(self, f"_{role}", None)  # release device memory before loading
+            setattr(self, f"_{role}", self._load(spec, device, role, mesh))
+            setattr(self, f"_{role}_key", new_key)
+            return getattr(self, f"_{role}")
 
-    def get_reranker(self, spec: ModelSpec | None = None, device=None) -> Reranker:
-        spec = self._resolve_spec(spec or ModelSpec(DEFAULT_RERANKER_MODEL))
-        with self._lock:
-            if self._reranker is not None and self._key_matches(self._reranker_key, spec, device):
-                return self._reranker
-            device = _device_of(device)
-            key = (*spec.key(), str(device))
-            if self._reranker is not None:
-                logger.info("swapping reranker %s -> %s", self._reranker_key, key)
-                self._reranker = None
-            self._reranker = self._load(spec, device, "reranker")
-            self._reranker_key = key
-            return self._reranker
+    def get_embedder(self, spec: ModelSpec | None = None, device=None, mesh=None) -> Embedder:
+        return self._get("embedder", self._resolve_spec(spec or ModelSpec(DEFAULT_EMBEDDING_MODEL)), device, mesh)
+
+    def get_reranker(self, spec: ModelSpec | None = None, device=None, mesh=None) -> Reranker:
+        return self._get("reranker", self._resolve_spec(spec or ModelSpec(DEFAULT_RERANKER_MODEL)), device, mesh)
 
     def unload_all(self) -> None:
         with self._lock:

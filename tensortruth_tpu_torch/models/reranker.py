@@ -15,6 +15,11 @@ yet re-measured on the H100.
 ids uploaded without a stream synchronise (``embedder.upload``), the scores
 are concatenated on the device and copied to pinned host memory behind a
 CUDA event, and ``finish()`` waits only for that event.
+
+On a mesh (``Reranker(mesh=...)``) every forward is data-parallel over the
+mesh's slots (``embedder.make_dp_forward``), with type ids as a third batch
+array for the models that need them; batches round up to a multiple of the
+mesh size.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tensortruth_tpu_torch.models.embedder import bucket, pad_batch, to_host_async, upload
+from tensortruth_tpu_torch.models.embedder import bucket, make_dp_forward, pad_batch, to_host_async
 from tensortruth_tpu_torch.models.xlmr import XLMRConfig, XLMRModel, rerank_logits
 
 
@@ -36,6 +41,7 @@ class Reranker:
         max_length: int = 2048,
         batch_buckets: Sequence[int] = (16, 32, 64, 128),
         seq_buckets: Sequence[int] = (64, 128, 192, 256, 320, 512, 1024, 2048),
+        mesh=None,
     ):
         cfg = model.cfg
         if cfg.num_labels != 1:
@@ -49,6 +55,8 @@ class Reranker:
         # BERT-family cross-encoders were trained with segment ids on the doc
         # side; XLM-R rerankers have a single token type.
         self._needs_type_ids = cfg.position_style == "bert" and cfg.type_vocab_size > 1
+        self.mesh = mesh
+        self._fwd, self._batch_multiple = make_dp_forward(rerank_logits, model, mesh)
 
     @classmethod
     def random_init(
@@ -123,20 +131,19 @@ class Reranker:
         if n_pairs == 0:
             return lambda: np.zeros((0,), dtype=np.float32)
         lengths = mask.sum(axis=1)
-        dev = self.device
         sels, probs = [], []
         with torch.inference_mode():
             for sel in self._groups(lengths):
                 seq = bucket(int(lengths[sel].max()), self.seq_buckets)
                 bsz = bucket(len(sel), self.batch_buckets)
-                ids_p, mask_p = pad_batch(ids, mask, sel, bsz, seq, self.tokenizer.pad_id)
-                type_t = None
+                bsz = -(-bsz // self._batch_multiple) * self._batch_multiple  # DP
+                batch = pad_batch(ids, mask, sel, bsz, seq, self.tokenizer.pad_id)
                 if self._needs_type_ids:
                     # type 1 strictly after the first [SEP], 0 elsewhere incl. padding
+                    ids_p, mask_p = batch
                     first_sep = (ids_p == self.tokenizer.sep_id).argmax(axis=1)
-                    type_p = ((np.arange(seq)[None, :] > first_sep[:, None]) & (mask_p > 0)).astype(np.int32)
-                    type_t = upload(type_p, dev)
-                logits = rerank_logits(self.model, upload(ids_p, dev), upload(mask_p, dev), type_t)
+                    batch += (((np.arange(seq)[None, :] > first_sep[:, None]) & (mask_p > 0)).astype(np.int32),)
+                logits = self._fwd(*batch)
                 probs.append(torch.sigmoid(logits[: len(sel)]))
                 sels.append(sel)
             wait = to_host_async(torch.cat(probs))

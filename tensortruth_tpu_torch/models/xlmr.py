@@ -216,6 +216,13 @@ class XLMRModel(nn.Module):
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
 
+    def replicate(self, device) -> "XLMRModel":
+        """A copy of this model's parameters on ``device``, each in its own
+        dtype (the data-parallel forwards hold one per distinct device)."""
+        replica = type(self)(self.cfg, device="meta", dtype=self.dtype)
+        replica.load_state_dict({k: v.to(device) for k, v in self.state_dict().items()}, assign=True)
+        return replica
+
 
 def encoder_forward(
     model: XLMRModel,

@@ -1,7 +1,7 @@
 """IVF coarse partitioning: the capacity tier of retrieval (kernel B4).
 
-Port of ``tensortruth_tpu/ops/ivf.py`` for one device (the sharded index
-waits for the multi-GPU slice). Same layout and contract:
+Port of ``tensortruth_tpu/ops/ivf.py``, with its cluster-sharded tier
+(:class:`ShardedIVF`). Same layout and contract:
 
 * **Build:** spherical k-means on a row sample, one streaming top-2
   assignment pass on the device, then rows packed cluster-major into a
@@ -12,6 +12,12 @@ waits for the multi-GPU slice). Same layout and contract:
 * **Query:** (B, n_clusters) centroid scores -> top-``nprobe`` clusters ->
   probe scores (B, nprobe, rows_per_cluster) -> one stable top-k over the
   probed positions ``probe * rpc + slot``.
+* **Sharded:** the clusters pad to a multiple of the mesh's shard count and
+  each shard holds its ``cpl`` clusters; per shard the centroids are scored,
+  padded clusters masked, the top-``min(nprobe, cpl)`` of the shard's own
+  clusters probed through B4 (the int8 grouping over those ``cpl``
+  clusters), and the local top-k taken at global positions; the candidates
+  merge shard-major on the lead device as in ``parallel/sharded_topk.py``.
 
 Dispatch: :func:`probe_scores` on CUDA tensors launches the hand-written
 kernels (``csrc/ivf_probe.cu``) or raises; CPU tensors take the plain
@@ -44,7 +50,7 @@ import torch
 
 from tensortruth_tpu_torch import _build
 from tensortruth_tpu_torch.ops.matmul import bmm_f32, mm_f32
-from tensortruth_tpu_torch.ops.topk import NEG_INF, _sorted_topk
+from tensortruth_tpu_torch.ops.topk import NEG_INF, _sorted_topk, merge_candidates
 
 logger = logging.getLogger(__name__)
 
@@ -419,6 +425,7 @@ def build_ivf(
     n_rows: int | None = None,
     dim: int | None = None,
     device="cuda",
+    device_blocks: bool = True,
 ) -> IVFIndex:
     """Fit centroids on a sample, assign all rows, pack cluster-major.
 
@@ -434,6 +441,11 @@ def build_ivf(
     the 95th-percentile cluster, at most ``max_overflow`` x N/n_clusters,
     rounded up to 128; rows of over-full clusters spill into their
     second-best cluster, then into the best-scoring cluster with room.
+
+    ``device_blocks=False`` leaves the blocks and scales in host memory
+    (the k-means and assignment still run on ``device``): the mesh path
+    hands them to :func:`shard_ivf`, and no single-device staging copy is
+    made.
     """
     device = torch.device(device)
     if callable(emb):
@@ -551,12 +563,13 @@ def build_ivf(
     seconds["fill"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    blocks_at = device if device_blocks else torch.device("cpu")
     index = IVFIndex(
         centroids=torch.from_numpy(centroids).to(device),
-        blocks=blocks.to(device),
+        blocks=blocks.to(blocks_at),
         row_map=row_map,
         n_actual=n,
-        scales=torch.from_numpy(scales_np).to(device) if quantized else None,
+        scales=torch.from_numpy(scales_np).to(blocks_at) if quantized else None,
     )
     seconds["to_device"] = time.perf_counter() - t0
     index.build_seconds = seconds
@@ -614,3 +627,141 @@ def ivf_search(index: IVFIndex, q, k: int, nprobe: int = 8) -> tuple[np.ndarray,
         vals = np.pad(vals, ((0, 0), (0, pad)), constant_values=NEG_INF)
         rows = np.pad(rows, ((0, 0), (0, pad)), constant_values=-1)
     return vals, rows
+
+
+# -- the cluster-sharded tier --------------------------------------------------
+
+
+@dataclass
+class ShardedIVF:
+    """IVF with cluster blocks sharded over the mesh's ``shards`` axis.
+
+    Shard ``s`` holds clusters ``[s * cpl, (s + 1) * cpl)``, once on each
+    distinct device of its mesh column (``parts[s][device]`` = (centroids
+    (cpl, D), blocks (cpl, rpc, D), valid (cpl, rpc) int32, scales (cpl,
+    rpc) f32 or None)). Every shard probes the top-``nprobe`` of its OWN
+    clusters: a globally top-``nprobe`` cluster is within the top of its
+    shard, so the union covers a superset of the single-device probe set.
+    Centroids are kept in the blocks' dtype (bf16 over int8 blocks)."""
+
+    mesh: object
+    cpl: int  # clusters per shard
+    parts: dict[int, dict[torch.device, tuple]]
+    row_map: np.ndarray  # (nc_pad, rpc) host: padded position -> original row, -1
+    n_actual: int
+    n_clusters_actual: int
+    quantized: bool
+
+    @property
+    def rows_per_cluster(self) -> int:
+        return self.row_map.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(iter(next(iter(self.parts.values())).values()))[1].dtype
+
+    def nbytes(self) -> int:
+        """Device bytes of every buffer this process holds."""
+        return sum(t.numel() * t.element_size() for by_dev in self.parts.values() for arrays in by_dev.values()
+                   for t in arrays if t is not None)
+
+
+def shard_parts(mesh, cpl: int, centroids, blocks, valid, scales, shards, first: int = 0) -> dict:
+    """``parts`` of a :class:`ShardedIVF`: for each shard of ``shards``, its
+    ``cpl`` clusters of the given arrays (which start at shard ``first``)
+    copied once to each distinct device of its mesh column."""
+    from tensortruth_tpu_torch.parallel.sharded_topk import place
+
+    parts = {}
+    for s in shards:
+        cut = slice((s - first) * cpl, (s - first + 1) * cpl)
+        arrays = [a[cut] for a in (centroids, blocks, valid)] + [None if scales is None else scales[cut]]
+        placed = [None if a is None else place(a.contiguous(), mesh.shard_devices(s)) for a in arrays]
+        parts[s] = {d: tuple(None if p is None else p[d] for p in placed) for d in mesh.shard_devices(s)}
+    return parts
+
+
+def shard_ivf(index: IVFIndex, mesh) -> ShardedIVF:
+    """Place an :class:`IVFIndex` cluster-sharded on the mesh (clusters
+    padded to a multiple of the shard count: zero blocks, no valid slot,
+    scale 1, row -1). The index's blocks may be in host memory
+    (``build_ivf(device_blocks=False)``)."""
+    from tensortruth_tpu_torch.parallel.mesh import SHARD_AXIS
+
+    p = mesh.shape[SHARD_AXIS]
+    nc, rpc = index.n_clusters, index.rows_per_cluster
+    nc_pad = -(-nc // p) * p
+    quantized = index.scales is not None
+    blocks = index.blocks.cpu()
+    centroids = index.centroids.cpu().to(torch.bfloat16 if quantized else blocks.dtype)
+    valid = torch.from_numpy((index.row_map >= 0).astype(np.int32))
+    scales = index.scales.cpu() if quantized else None
+    row_map = index.row_map
+    if nc_pad != nc:
+        extra = nc_pad - nc
+        blocks = torch.cat([blocks, blocks.new_zeros((extra, rpc, blocks.shape[2]))])
+        centroids = torch.cat([centroids, centroids.new_zeros((extra, centroids.shape[1]))])
+        valid = torch.cat([valid, valid.new_zeros((extra, rpc))])
+        row_map = np.concatenate([row_map, np.full((extra, rpc), -1, row_map.dtype)])
+        if quantized:
+            scales = torch.cat([scales, scales.new_ones((extra, rpc))])
+    cpl = nc_pad // p
+    return ShardedIVF(
+        mesh=mesh, cpl=cpl, parts=shard_parts(mesh, cpl, centroids, blocks, valid, scales, range(p)),
+        row_map=row_map, n_actual=index.n_actual, n_clusters_actual=nc, quantized=quantized,
+    )
+
+
+def _shard_ivf_topk(q, arrays, cluster0: int, *, k: int, nprobe: int, n_clusters_actual: int, plain: bool):
+    """One shard: its centroid scores (padded clusters -inf), the top
+    ``nprobe`` of its own clusters, their probe scores (B4, or its plain
+    version) and the local top-k at global positions."""
+    centroids, blocks, valid, scales = arrays
+    b, cpl, rpc = q.shape[0], blocks.shape[0], blocks.shape[1]
+    cscores = mm_f32(q, centroids.t())
+    cid = cluster0 + torch.arange(cpl, device=q.device)
+    _, probe = _sorted_topk(cscores.masked_fill(cid >= n_clusters_actual, NEG_INF), nprobe)
+    probe = probe.to(torch.int32)
+    scores = (probe_scores_plain if plain else probe_scores)(probe, q, blocks, valid, scales)
+    slots = torch.arange(rpc, device=q.device)
+    pos = ((cluster0 + probe.long())[:, :, None] * rpc + slots).reshape(b, nprobe * rpc)
+    top_v, top_i = _sorted_topk(scores.reshape(b, nprobe * rpc), min(k, nprobe * rpc))
+    return top_v, torch.gather(pos, 1, top_i)
+
+
+def shard_ivf_candidates(sidx: ShardedIVF, q: torch.Tensor, k: int, nprobe: int, plain: bool = False) -> list:
+    """Launch every held shard's local search (on the first device of its
+    column); returns ``[(scores, positions)]`` per held shard, in order, on
+    the shards' devices."""
+    from tensortruth_tpu_torch.parallel.mesh import on
+
+    out = []
+    np_l = min(nprobe, sidx.cpl)
+    for s in sorted(sidx.parts):
+        dev = sidx.mesh.shard_devices(s)[0]
+        with on(dev):
+            out.append(_shard_ivf_topk(q.to(dev, non_blocking=True), sidx.parts[s][dev], s * sidx.cpl, k=k,
+                                       nprobe=np_l, n_clusters_actual=sidx.n_clusters_actual, plain=plain))
+    return out
+
+
+def positions_to_rows(sidx: ShardedIVF, vals: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """Padded positions -> original rows, -1 where the slot is empty."""
+    rows = np.where(pos >= 0, sidx.row_map.reshape(-1)[np.maximum(pos, 0)], -1)
+    return np.where(vals > NEG_INF, rows, -1)
+
+
+def ivf_search_sharded(
+    sidx: ShardedIVF, q, k: int, nprobe: int = 8, plain: bool = False
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host wrapper for the sharded tier: same returns as :func:`ivf_search`
+    (the query scores in bf16 against int8 blocks). ``plain`` probes each
+    shard through :func:`probe_scores_plain` (what B4 is held against)."""
+    lead = sidx.mesh.lead
+    q = (q if torch.is_tensor(q) else host_tensor(q)).to(lead, torch.bfloat16 if sidx.quantized else sidx.dtype)
+    with torch.inference_mode():
+        cands = shard_ivf_candidates(sidx, q, k, nprobe, plain=plain)
+        vals, pos = merge_candidates(torch.cat([v.to(lead) for v, _ in cands], dim=1),
+                                     torch.cat([p.to(lead) for _, p in cands], dim=1), k)
+    vals, pos = vals.cpu().numpy(), pos.cpu().numpy()
+    return vals, positions_to_rows(sidx, vals, pos)

@@ -58,6 +58,14 @@ def pad_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
     return vals, idx
 
 
+def merge_candidates(cand_v: torch.Tensor, cand_i: torch.Tensor, k: int):
+    """Global top-k of shard-major (B, S * k_local) candidate scores and
+    ids: one stable top-k (lax.top_k's tie order over the reference's
+    all-gathered candidates), padded to k with -inf / -1."""
+    top_v, pos = _sorted_topk(cand_v, min(k, cand_v.shape[1]))
+    return pad_topk(top_v, torch.gather(cand_i, 1, pos), k)
+
+
 def exact_topk(
     q: torch.Tensor, emb: torch.Tensor, k: int, n_valid: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -87,28 +95,30 @@ def _geometry(n: int, n_actual: int, tile_n: int, m: int, c_out: int):
 
 
 def fused_candidates_plain(
-    q: torch.Tensor, emb: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int
+    q: torch.Tensor, emb: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int, n_valid: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel B1: the (B, c_out) candidate values
     and global row indices, bit-for-bit the reference's bucketing."""
-    return _bucket_candidates(mm_f32(q, emb.t()), tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    return _bucket_candidates(mm_f32(q, emb.t()), tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, n_valid=n_valid)
 
 
 def fused_candidates_int8_plain(
     q: torch.Tensor, emb_q: torch.Tensor, scales: torch.Tensor, *, tile_n: int, m: int, c_out: int,
-    n_actual: int,
+    n_actual: int, n_valid: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel B2: the int8 rows converted to the
     query's dtype (exact), the f32 dot, THEN the f32 row scale, as the
     reference orders them; then B1's bucketing."""
     scores = mm_f32(q, emb_q.to(q.dtype).t()) * scales.to(torch.float32)
-    return _bucket_candidates(scores, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    return _bucket_candidates(scores, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, n_valid=n_valid)
 
 
 def _bucket_candidates(
-    scores: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int
+    scores: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int, n_valid: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, N) f32 scores -> (B, c_out) candidate values and global rows.
+    ``n_actual`` sets the geometry; rows at or past ``n_valid`` (default
+    ``n_actual``) are masked.
 
     Global row of (tile step t, block r, segment i, slot j) is
     ``((t * n_rot + r) * m + i) * c + j``. Each (block, slot) keeps the
@@ -121,7 +131,7 @@ def _bucket_candidates(
     rows = inner * n_rot * tile_n
     scores = torch.nn.functional.pad(scores, (0, rows - n), value=NEG_INF)
     col = torch.arange(rows, device=scores.device)
-    scores = scores.masked_fill(col >= n_actual, NEG_INF)
+    scores = scores.masked_fill(col >= (n_actual if n_valid is None else n_valid), NEG_INF)
     # (B, t, r, i, j) -> (B, r, j, t·i): the per-slot merge sequence
     seq = scores.view(b, inner, n_rot, m, c).permute(0, 2, 4, 1, 3).reshape(b, n_rot, c, inner * m)
     best = seq.amax(dim=-1)
@@ -233,7 +243,7 @@ def _candidate_buffers(n_ranges: int, b_pad: int, c_out: int, device):
 
 
 def fused_candidates_cuda(
-    q: torch.Tensor, emb: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int
+    q: torch.Tensor, emb: torch.Tensor, *, tile_n: int, m: int, c_out: int, n_actual: int, n_valid: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B1 on the card: same contract as :func:`fused_candidates_plain`.
     Raises on any input the kernel does not take."""
@@ -242,14 +252,25 @@ def fused_candidates_cuda(
     q, emb, _, geometry = _kernel_operands(
         q, emb, None, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, name="fused_topk"
     )
-    out = _stream_candidates(q, emb, None, geometry, tile_n=tile_n, m=m, n_actual=n_actual)
+    out = _stream_candidates(q, emb, None, geometry, tile_n=tile_n, m=m, limit=_limit(n_actual, n_valid))
     fused_topk.launches += 1
     return out
 
 
-def _stream_candidates(q, emb, scales, geometry, *, tile_n, m, n_actual):
+def _limit(n_actual: int, n_valid: int | None) -> int:
+    """The kernels' row mask: ``n_valid`` when given, else ``n_actual``. A
+    kernel needs at least one valid row (its tensor map covers the tiles
+    below the limit)."""
+    limit = n_actual if n_valid is None else n_valid
+    if not 0 < limit <= n_actual:
+        raise ValueError(f"fused top-k kernels need 0 < n_valid <= n_actual, got {limit} of {n_actual}")
+    return limit
+
+
+def _stream_candidates(q, emb, scales, geometry, *, tile_n, m, limit):
     """Launch the partial pass (B2 when ``scales`` is given, else B1) and
-    the merge; returns the (b, c_out) candidates."""
+    the merge over the rows below ``limit``; returns the (b, c_out)
+    candidates."""
     b, b_pad, d, c, c_out, n_rot, inner = geometry
     int8 = scales is not None
     blocks, n_ranges = stream_schedule(b_pad, c, n_rot, inner, m, *_occupancy_of(q.device, d, int8))
@@ -258,7 +279,7 @@ def _stream_candidates(q, emb, scales, geometry, *, tile_n, m, n_actual):
         q = permute_dims(q)
     err = _build.load().tt_fused_topk_candidates(
         q.data_ptr(), emb.data_ptr(), scales.data_ptr() if int8 else None, part_vals.data_ptr(),
-        part_idx.data_ptr(), cand_vals.data_ptr(), cand_idx.data_ptr(), b_pad, d, n_actual, tile_n, m, n_rot,
+        part_idx.data_ptr(), cand_vals.data_ptr(), cand_idx.data_ptr(), b_pad, d, limit, tile_n, m, n_rot,
         inner, n_ranges, blocks, _build.stream_of(q),
     )
     _build.check(err, "fused_topk_int8" if int8 else "fused_topk")
@@ -267,7 +288,7 @@ def _stream_candidates(q, emb, scales, geometry, *, tile_n, m, n_actual):
 
 def fused_candidates_int8_cuda(
     q: torch.Tensor, emb_q: torch.Tensor, scales: torch.Tensor, *, tile_n: int, m: int, c_out: int,
-    n_actual: int,
+    n_actual: int, n_valid: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B2 on the card: same contract as
     :func:`fused_candidates_int8_plain`. Raises on any input the kernel does
@@ -282,7 +303,7 @@ def fused_candidates_int8_cuda(
     q, emb_q, scales, geometry = _kernel_operands(
         q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, name="fused_topk_int8"
     )
-    out = _stream_candidates(q, emb_q, scales, geometry, tile_n=tile_n, m=m, n_actual=n_actual)
+    out = _stream_candidates(q, emb_q, scales, geometry, tile_n=tile_n, m=m, limit=_limit(n_actual, n_valid))
     fused_topk_int8.launches += 1
     return out
 
@@ -295,16 +316,20 @@ def fused_topk(
     tile_n: int = 2048,
     c_out: int = 2048,
     n_actual: int | None = None,
+    n_valid: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused matmul + bucketed top-k. Same returns as :func:`exact_topk`.
 
     q (B, D), emb (N, D), both L2-normalised. ``n_actual`` is the valid-row
     count (rows past it are padding). On CUDA tensors this launches kernel B1
-    (bf16 only); on CPU tensors it runs the plain version.
+    (bf16 only); on CPU tensors it runs the plain version. ``n_valid``
+    masks the rows at or past it and leaves the candidate geometry to
+    ``n_actual``: one shard of a row-sharded corpus, as the reference's
+    traced ``n_valid`` does.
     """
     n_actual = emb.shape[0] if n_actual is None else n_actual
     candidates = fused_candidates_cuda if (q.is_cuda or emb.is_cuda) else fused_candidates_plain
-    cand = candidates(q, emb, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    cand = candidates(q, emb, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, n_valid=n_valid)
     return select_topk(*cand, k, n_actual)
 
 
@@ -319,11 +344,12 @@ def fused_topk_plain(
     tile_n: int = 2048,
     c_out: int = 2048,
     n_actual: int | None = None,
+    n_valid: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`fused_topk` through the plain version on any device (what the
     kernel is held against)."""
     n_actual = emb.shape[0] if n_actual is None else n_actual
-    cand = fused_candidates_plain(q, emb, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    cand = fused_candidates_plain(q, emb, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, n_valid=n_valid)
     return select_topk(*cand, k, n_actual)
 
 
@@ -343,16 +369,17 @@ def fused_topk_int8(
     tile_n: int = 2048,
     c_out: int = 2048,
     n_actual: int | None = None,
+    n_valid: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`fused_topk` over an int8 corpus + per-row f32 scales (see
     :func:`quantize_corpus`). Same returns as :func:`exact_topk`; the query
     stays bf16. There is no exact cut-over: small corpora take the fused
     path too. On CUDA tensors this launches kernel B2; on CPU tensors it
-    runs the plain version."""
+    runs the plain version. ``n_valid`` as in :func:`fused_topk`."""
     n_actual = emb_q.shape[0] if n_actual is None else n_actual
     on_card = q.is_cuda or emb_q.is_cuda or scales.is_cuda
     candidates = fused_candidates_int8_cuda if on_card else fused_candidates_int8_plain
-    cand = candidates(q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    cand = candidates(q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, n_valid=n_valid)
     return select_topk(*cand, k, n_actual)
 
 
@@ -368,11 +395,14 @@ def fused_topk_int8_plain(
     tile_n: int = 2048,
     c_out: int = 2048,
     n_actual: int | None = None,
+    n_valid: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`fused_topk_int8` through the plain version on any device (what
     the kernel is held against)."""
     n_actual = emb_q.shape[0] if n_actual is None else n_actual
-    cand = fused_candidates_int8_plain(q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual)
+    cand = fused_candidates_int8_plain(
+        q, emb_q, scales, tile_n=tile_n, m=m, c_out=c_out, n_actual=n_actual, n_valid=n_valid
+    )
     return select_topk(*cand, k, n_actual)
 
 
@@ -405,6 +435,20 @@ def pad_corpus_for_fused(emb: np.ndarray, tile_n: int = 2048) -> tuple[np.ndarra
         return emb, n
     pad = np.zeros((n_pad - n, emb.shape[1]), dtype=emb.dtype)
     return np.concatenate([emb, pad], axis=0), n
+
+
+def check_topk_agrees(name: str, got, want, tol: float) -> tuple[float, int]:
+    """Hold one top-k (scores, ids) against another's, e.g. a kernel's
+    against its plain version's: scores within ``tol``, and an id may differ
+    only where the two scores at that rank are within it. Raises
+    RuntimeError otherwise; returns (max |err|, ids that differ)."""
+    (vals, idx), (pvals, pidx) = got, want
+    diff = (vals - pvals).abs()
+    err = diff.max().item()
+    bad = int(((idx != pidx) & (diff > tol)).sum())
+    if err > tol or bad:
+        raise RuntimeError(f"{name}: max |err| {err}, {bad} index mismatches")
+    return err, int((idx != pidx).sum())
 
 
 def quantize_corpus(emb) -> tuple[np.ndarray, np.ndarray]:

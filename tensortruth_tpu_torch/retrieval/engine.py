@@ -1,8 +1,8 @@
 """MultiIndexEngine: every loaded module's leaf matrix stacked into one
 device matrix, searched by one top-k launch per query batch.
 
-Port of ``tensortruth_tpu/retrieval/engine.py`` for one device. Every tier
-streams ``iter_matrix_pieces`` (the f32 stack is never materialised):
+Port of ``tensortruth_tpu/retrieval/engine.py``. Every tier streams
+``iter_matrix_pieces`` (the f32 stack is never materialised):
 
 * flat bf16 / f32: one preallocated host tensor in the corpus dtype, padded
   to 2048-row tiles, then ONE copy to the device; searched by
@@ -15,6 +15,14 @@ streams ``iter_matrix_pieces`` (the f32 stack is never materialised):
   cluster-major ``IVFIndex`` of bf16 or int8 blocks, searched by
   ``ivf_search`` (kernel B4).
 
+On a mesh (``parallel/mesh.py``) the device is the mesh's lead device and
+the flat tiers are row-sharded (``parallel/sharded_topk.py``: bf16 / f32
+through ``shard_corpus_streaming``, tile-aligned when fused; int8 through
+``shard_corpus_int8_streaming``, searched by B2 when fused, else by the
+dequantised exact product), searched by one launch per shard and a merge.
+The IVF threshold scales with the shard count; past it the blocks are built
+in host memory and placed cluster-sharded (``ops/ivf.py::shard_ivf``).
+
 The query is never cast to int8: it scores in bf16 against an int8 corpus.
 Then: per-module quota (``similarity_top_k`` per index) over ``top_k x
 n_modules`` global candidates, auto-merge per module, ``top_k_per_index``
@@ -22,8 +30,7 @@ balancing, and an LRU cache of 128 query texts.
 
 ``use_fused`` defaults to whether the engine's device is CUDA (the reference
 defaults to whether it runs on a TPU). The tier thresholds, cluster and probe
-counts are the reference's, sized for a TPU. A multi-device mesh is not
-ported yet: asking for one raises.
+counts are the reference's, sized for a TPU.
 """
 
 from __future__ import annotations
@@ -38,8 +45,22 @@ import torch
 
 from tensortruth_tpu_torch.index.nodes import Node
 from tensortruth_tpu_torch.index.store import VectorIndex
-from tensortruth_tpu_torch.ops.ivf import IVFIndex, build_ivf, host_tensor, ivf_search
+from tensortruth_tpu_torch.ops.ivf import (
+    IVFIndex,
+    ShardedIVF,
+    build_ivf,
+    host_tensor,
+    ivf_search,
+    ivf_search_sharded,
+    shard_ivf,
+)
 from tensortruth_tpu_torch.ops.topk import fused_topk_int8, quantize_corpus_streaming, topk_search
+from tensortruth_tpu_torch.parallel.mesh import SHARD_AXIS
+from tensortruth_tpu_torch.parallel.sharded_topk import (
+    shard_corpus_int8_streaming,
+    shard_corpus_streaming,
+    sharded_topk,
+)
 from tensortruth_tpu_torch.retrieval.automerge import auto_merge
 
 logger = logging.getLogger(__name__)
@@ -91,8 +112,6 @@ class MultiIndexEngine:
         corpus_dtype: str = "bfloat16",
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-device engine is not ported yet (ROADMAP A15)")
         self.mesh = mesh
         self.modules = list(indexes.keys())
         self.indexes = indexes
@@ -101,16 +120,18 @@ class MultiIndexEngine:
         self.enable_cache = enable_cache
         self.cache_size = cache_size
         self.balance_strategy = balance_strategy
-        self.device = torch.device(device)
+        self.device = mesh.lead if mesh is not None else torch.device(device)
         self.use_fused = use_fused if use_fused is not None else self.device.type == "cuda"
         self.ivf_threshold = ivf_threshold
         self.ivf_clusters = ivf_clusters
         self.ivf_nprobe = ivf_nprobe
         self.corpus_dtype = corpus_dtype
         self._cache: OrderedDict[str, list[RetrievedNode]] = OrderedDict()
-        self._stacked: torch.Tensor | None = None  # flat corpus, or the IVF blocks
+        # flat corpus (a ShardedCorpus on a mesh), or the IVF blocks (the ShardedIVF on a mesh)
+        self._stacked = None
         self._stacked_scales: torch.Tensor | None = None  # f32 row scales of an int8 flat corpus
         self._ivf: IVFIndex | None = None
+        self._ivf_sharded: ShardedIVF | None = None
         self.placement_seconds: dict[str, float] = {}  # host clock per step of the last _restack
         self._row_map: np.ndarray | None = None  # global row -> physical row
         self._module_of_row: np.ndarray | None = None
@@ -130,7 +151,7 @@ class MultiIndexEngine:
             active.append(mod)
             dim = m.shape[1]
         self._cache.clear()
-        self._ivf, self._stacked_scales, self.placement_seconds = None, None, {}
+        self._ivf, self._ivf_sharded, self._stacked_scales, self.placement_seconds = None, None, None, {}
         if not active:
             self._stacked, self._n_actual = None, 0
             return
@@ -143,21 +164,39 @@ class MultiIndexEngine:
             for mod in active:
                 yield from self.indexes[mod].iter_matrix_pieces()
 
-        # int8 halves the bytes per row, so the flat scan holds to twice the
-        # rows before the IVF tier takes over (the reference's factor).
+        # A mesh shards the flat scan over its shards, so the IVF threshold
+        # scales with the shard count; int8 halves the bytes per row, so the
+        # flat scan holds to twice the rows (the reference's factors).
+        n_shards = self.mesh.shape[SHARD_AXIS] if self.mesh is not None else 1
         dtype_factor = 2 if self.corpus_dtype == "int8" else 1
+        tile_n = TILE_ROWS if self.use_fused else None
         t0 = time.perf_counter()
-        if self._n_actual >= self.ivf_threshold * dtype_factor:
-            self._ivf = build_ivf(
+        if self._n_actual >= self.ivf_threshold * n_shards * dtype_factor:
+            ivf = build_ivf(
                 emb_pieces,
                 n_clusters=self.ivf_clusters,
                 block_dtype=torch.int8 if self.corpus_dtype == "int8" else torch.bfloat16,
                 n_rows=self._n_actual,
                 dim=dim,
                 device=self.device,
+                device_blocks=self.mesh is None,
             )
-            self._stacked = self._ivf.blocks
-            self.placement_seconds = dict(self._ivf.build_seconds)
+            self.placement_seconds = dict(ivf.build_seconds)
+            if self.mesh is None:
+                self._ivf = ivf
+                self._stacked = ivf.blocks
+                return
+            t0 = time.perf_counter()
+            self._ivf_sharded = self._stacked = shard_ivf(ivf, self.mesh)
+            self.placement_seconds["shard"] = time.perf_counter() - t0
+            return
+        if self.mesh is not None:
+            if self.corpus_dtype == "int8":
+                self._stacked, _ = shard_corpus_int8_streaming(emb_pieces(), self._n_actual, dim, self.mesh, tile_n)
+            else:
+                dtype = torch.float32 if self.corpus_dtype == "float32" else torch.bfloat16
+                self._stacked, _ = shard_corpus_streaming(emb_pieces(), self._n_actual, dim, self.mesh, dtype, tile_n)
+            self.placement_seconds["shard"] = time.perf_counter() - t0
             return
         if self.corpus_dtype == "int8" and self.use_fused:
             emb_q, scales, _ = quantize_corpus_streaming(emb_pieces(), self._n_actual, dim, tile_n=TILE_ROWS)
@@ -222,11 +261,16 @@ class MultiIndexEngine:
         int8 = self._stacked_scales is not None or self._stacked.dtype == torch.int8
         q_dtype = torch.bfloat16 if int8 else self._stacked.dtype
         q = torch.from_numpy(np.asarray(query_embs, dtype=np.float32)).to(self.device, q_dtype)
+        if self._ivf_sharded is not None:
+            vals, idx = ivf_search_sharded(self._ivf_sharded, q, k, nprobe=self.ivf_nprobe)
+            return [self._postprocess(vals[i], idx[i]) for i in range(vals.shape[0])]
         if self._ivf is not None:
             vals, idx = ivf_search(self._ivf, q, k, nprobe=self.ivf_nprobe)
             return [self._postprocess(vals[i], idx[i]) for i in range(vals.shape[0])]
         with torch.inference_mode():
-            if self._stacked_scales is not None:
+            if self.mesh is not None:
+                vals, idx = sharded_topk(q, self._stacked, k=k, n_actual=self._n_actual, use_fused=self.use_fused)
+            elif self._stacked_scales is not None:
                 vals, idx = fused_topk_int8(q, self._stacked, self._stacked_scales, k, n_actual=self._n_actual)
             else:
                 vals, idx = topk_search(q, self._stacked, k, exact=not self.use_fused, n_actual=self._n_actual)

@@ -3,7 +3,8 @@ its original on the same inputs.
 
 The port imports nothing of ``tensortruth_tpu``: it keeps copies of the
 jax-free host code it runs (``app/{config,paths,history_cleaner}``,
-``core/{source,prompts,providers}``, ``index/``, ``native/hostkit``,
+``core/{source,prompts,providers}``, ``index/`` (``packed.py`` is adapted:
+test_torch_server.py names its one changed function), ``native/hostkit``,
 ``services/{batcher,chat_history,condenser,feeder}``, ``tokenization/``
 and ``StageTimer`` of ``utils/profiling``; for the offline build path
 ``core/types``, ``app/sources``, ``utils/{pdf,validation,interactive}``,
@@ -36,7 +37,7 @@ REF, PORT = "tensortruth_tpu", "tensortruth_tpu_torch"
 COPIED = [
     "app/__init__.py", "app/config.py", "app/paths.py", "app/history_cleaner.py",
     "core/__init__.py", "core/source.py", "core/prompts.py", "core/providers.py",
-    "index/__init__.py", "index/chunker.py", "index/nodes.py", "index/packed.py", "index/store.py",
+    "index/__init__.py", "index/chunker.py", "index/nodes.py", "index/store.py",
     "native/__init__.py", "native/hostkit.py", "native/hostkit.cpp",
     "services/batcher.py", "services/chat_history.py", "services/condenser.py", "services/feeder.py",
     "tokenization/__init__.py", "tokenization/tokenizer.py", "utils/__init__.py",
@@ -160,6 +161,36 @@ def _index(pkg, fixed_ids):
     nodes = _chunk(pkg, "hierarchical", fixed_ids)
     return index.VectorIndex.build(nodes, _embed_fn, embedding_model="tiny-embedder", chunk_sizes=[512, 128],
                                    chunk_overlap=16, gelu_flavor="exact")
+
+
+def test_is_packed_takes_no_exclusive_lock_when_nothing_needs_healing(tmp_path):
+    """A shared lock on an unpacked module (another process reading it) does
+    not hold up the port's ``is_packed``; the reference's waits for an
+    exclusive lock, which two concurrent readers, each upgrading its own
+    shared lock, can wait for forever (ROADMAP C)."""
+    import fcntl
+    import os
+    import threading
+
+    port_packed, ref_packed = (importlib.import_module(f"{pkg}.index.packed") for pkg in (PORT, REF))
+    mod = tmp_path / "mod"
+    mod.mkdir()
+    fd = os.open(mod / (port_packed.PACKED_DIR + ".lock"), os.O_CREAT | os.O_RDWR)
+    fcntl.flock(fd, fcntl.LOCK_SH)
+    answers = {PORT: [], REF: []}
+    threads = {pkg: threading.Thread(target=lambda m=m, a=answers[pkg]: a.append(m.is_packed(mod)), daemon=True)
+               for pkg, m in ((PORT, port_packed), (REF, ref_packed))}
+    try:
+        for t in threads.values():
+            t.start()
+        threads[PORT].join(10)
+        threads[REF].join(0.5)
+        assert answers == {PORT: [False], REF: []}
+    finally:
+        fcntl.flock(fd, fcntl.LOCK_UN)
+        os.close(fd)
+    threads[REF].join(10)
+    assert answers[REF] == [False]
 
 
 @pytest.mark.parametrize("packed", [False, True])

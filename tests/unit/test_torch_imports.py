@@ -4,7 +4,8 @@
   builds nothing, loads a tiny CPU engine through the port's
   ``RAGService.load_engine`` and answers one ``retrieve()``, then builds an
   index through the port's ``build_db.main`` (a tiny CPU embedder seated in
-  its model manager) and lists the sources through ``fetch_sources.main``:
+  its model manager), lists the sources through ``fetch_sources.main`` and
+  answers one ``retrieve()`` on a 2 x 2 mesh of CPU slots:
   afterwards no module of the JAX package (``tensortruth_tpu`` or under it),
   no ``jax`` and no ``triton`` is in ``sys.modules``. The same holds after
   a document upload and a WS chat through the port's app on the CPU.
@@ -72,6 +73,13 @@ assert build_db.main(["--modules", "readme", "--embedding-model", "tiny-embedder
                       "--chunk-overlap", "8"]) == 0
 assert VectorIndex.is_valid(work / "data" / "indexes" / "tiny-embedder" / "library_readme")
 assert fetch_sources.main(["list"]) == 0
+
+from tensortruth_tpu_torch.parallel import make_mesh
+
+mesh = make_mesh(n_shards=2, n_data=2, devices=["cpu"] * 4)
+svc.load_engine(["docs"], {"reranker_top_n": 2}, indexes_dir=work / "indexes", mesh=mesh)
+assert svc.engine.retriever.mesh is mesh and svc.engine.embedder.mesh is mesh
+assert svc.retrieve("How does the engine merge chunks?").sources
 foreign = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("tensortruth_tpu", "jax", "jaxlib", "triton"))
 print(len(mods), len(result.sources), foreign)

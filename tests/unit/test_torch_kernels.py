@@ -21,6 +21,11 @@ the int8 range too; bf16 -> f32
 agrees within 1e-3 absolute on N(0, 1) inputs (f32 sums of exact products in
 other orders, outputs up to about 6 * sqrt(K)).
 
+On a mesh whose slots all sit on this card, B1 and B2 run once per shard
+that holds a valid row and B4 (over int8 blocks with its grouping kernel) once per shard; each
+sharded search is held, with the same tolerances, against the same sharding
+run through the plain versions.
+
 Then the embedder and the reranker are held on the card to their promise of
 no stream synchronise between the batches they launch, and the port's
 ``build_module`` builds on the card the index it builds on the CPU: the same
@@ -41,10 +46,13 @@ from tensortruth_tpu_torch.models.manager import _EMBEDDER_ARCHS, _RERANKER_ARCH
 from tensortruth_tpu_torch.models.reranker import Reranker
 from tensortruth_tpu_torch.ops.attention import attention_reference, blocked_attention, blocked_attention_cuda
 from tensortruth_tpu_torch.ops.ivf import (
+    build_ivf,
     group_probes,
     group_probes_plain,
+    ivf_search_sharded,
     probe_scores,
     probe_scores_plain,
+    shard_ivf,
 )
 from tensortruth_tpu_torch.ops.matmul import tc_matmul, tc_matmul_plain
 from tensortruth_tpu_torch.ops.topk import (
@@ -53,6 +61,8 @@ from tensortruth_tpu_torch.ops.topk import (
     fused_topk_int8_plain,
     fused_topk_plain,
 )
+from tensortruth_tpu_torch.parallel import make_mesh, shard_corpus, sharded_topk
+from tensortruth_tpu_torch.parallel.sharded_topk import shard_corpus_int8
 from tensortruth_tpu_torch.tokenization import SimpleTokenizer
 
 pytestmark = pytest.mark.requires_cuda
@@ -395,6 +405,49 @@ def test_tc_matmul_int8_kernel_edges(gen, n_outer, m, k, n):
 
 def _syncs(prof, names=("cudaStreamSynchronize",)) -> int:
     return sum(e.name in names for e in prof.events())
+
+
+# -- the kernels per shard of a mesh whose slots all sit on this card ------------
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("q_sharded", [False, True])
+def test_sharded_topk_kernels_match_plain_on_a_repeated_device_mesh(gen, int8, q_sharded):
+    """B1 / B2 on each shard of a 2 x 4 mesh over one card, against the same
+    sharding through the plain versions. 5000 rows over 4 shards of 2048:
+    shard 2 is partly valid and shard 3 holds only padding (no launch)."""
+    mesh = make_mesh(n_shards=4, n_data=2, devices=["cuda"] * 8)
+    rows = _unit(gen, 5000, 64)
+    corpus = (shard_corpus_int8(rows.float().cpu(), mesh, tile_n=2048) if int8
+              else shard_corpus(rows.cpu(), mesh, tile_n=2048))[0]
+    assert all(len(by_dev) == 1 for by_dev in corpus.parts.values())  # one buffer per shard
+    q = _unit(gen, 4, 64)
+    counter = fused_topk_int8 if int8 else fused_topk
+    before = counter.launches
+    kw = dict(k=20, n_actual=5000, use_fused=True, q_sharded=q_sharded)
+    got = sharded_topk(q, corpus, **kw)
+    assert counter.launches - before == 3 * (2 if q_sharded else 1)
+    _assert_topk_close(got, sharded_topk(q, corpus, plain=True, **kw))
+    assert int(got[1].max()) < 5000
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_sharded_ivf_kernels_match_plain_on_a_repeated_device_mesh(gen, int8):
+    """B4 (and, over int8 blocks, its grouping kernel) on each shard's own
+    clusters, 12 clusters padded to 16 over 4 shards, against the plain
+    probe of every shard."""
+    rows = _unit(gen, 4000, 64).float().cpu().numpy()
+    index = build_ivf(rows, n_clusters=12, sample_size=4000, block_dtype=torch.int8 if int8 else torch.bfloat16,
+                      device="cuda", device_blocks=False)
+    sidx = shard_ivf(index, make_mesh(n_shards=4, devices=["cuda"] * 4))
+    q = rows[:32]
+    before = (probe_scores.launches, probe_scores.launches_int8, group_probes.launches)
+    vals, ids = ivf_search_sharded(sidx, q, 10, nprobe=2)
+    after = (probe_scores.launches, probe_scores.launches_int8, group_probes.launches)
+    assert [a - b for a, b in zip(after, before)] == ([0, 4, 4] if int8 else [4, 0, 0])
+    pvals, pids = ivf_search_sharded(sidx, q, 10, nprobe=2, plain=True)
+    _assert_topk_close(*[tuple(map(torch.from_numpy, pair)) for pair in ((vals, ids), (pvals, pids))])
+    assert (ids[:, 0] == np.arange(32)).mean() >= 0.9  # rows as queries find themselves
 
 
 def test_reranker_launches_its_groups_without_a_stream_sync(gen):

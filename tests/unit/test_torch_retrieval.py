@@ -24,6 +24,7 @@ from tensortruth_tpu.retrieval import ranking as ref_ranking
 from tensortruth_tpu.retrieval.engine import MultiIndexEngine as RefEngine
 from tensortruth_tpu_torch import index as port_index
 from tensortruth_tpu_torch.core.source import SourceNode
+from tensortruth_tpu_torch.parallel import make_mesh
 from tensortruth_tpu_torch.retrieval import automerge, metrics, ranking
 from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
 
@@ -127,14 +128,15 @@ def test_engine_single_query_cache_matches_reference():
 
 
 def test_engine_refuses_unported_tiers():
-    """Only the multi-device mesh is still unported; the int8 and IVF tiers
-    build (their parity with the reference is in test_torch_int8.py and
-    test_torch_ivf.py)."""
+    """No tier is refused any more: the int8 and IVF tiers build, and so
+    does a mesh engine (their parity with the reference is in
+    test_torch_int8.py, test_torch_ivf.py and test_torch_parallel.py)."""
     indexes = {"a": _module("a", 20, 3, seed=7)}
     assert MultiIndexEngine(indexes, device="cpu", corpus_dtype="int8", use_fused=True)._stacked_scales is not None
     assert MultiIndexEngine(indexes, device="cpu", ivf_threshold=10, ivf_clusters=4)._ivf is not None
-    with pytest.raises(NotImplementedError, match="A15"):
-        MultiIndexEngine(indexes, device="cpu", mesh=object())
+    mesh = make_mesh(n_shards=2, devices=["cpu", "cpu"])
+    engine = MultiIndexEngine(indexes, mesh=mesh)
+    assert engine.mesh is mesh and engine._stacked.mesh is mesh and all(engine.retrieve_batch(_queries(indexes)))
 
 
 def test_empty_engine():
