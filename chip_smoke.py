@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's index build, server, online query path and mesh tier once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's index build, server, online query path, mesh and multislice tiers once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -99,16 +99,40 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    (TOPK_TOL / PROBE_TOL), and against the exact top-20 (MIN_RECALL) or by
    self-retrieval; both ranks of (e) must return exactly (a)'s and (b)'s
    top-20. B1, B2 and B4 must be launched while (a)-(d) are driven;
-9. probe path: the int8 tensor-core probe
+9. multislice path, over the capacity path's IVF indexes (1024 clusters x
+   3072 rows x 1024, bf16 and int8), nprobe 32, top-20, 40 queries (the 32
+   corpus rows of the capacity path, self-retrieval, and the 8 questions),
+   3 batches per step: (a) ``MultiSliceIVF`` with 4 cluster groups in this
+   process (each a view of the index), routed on the host: held against the
+   same routing through the plain probe (PROBE_TOL), self-retrieval, and its
+   overlap with the single-device ``ivf_search`` reported (the two route
+   differently: f32 on the host, bf16 on the card); B4 must be launched once
+   per group touched per batch; (b) groups 2 and 3 written as parts
+   (``save_part``) and served by two ``SupervisedTransport`` worker
+   processes on the card, the local copies dropped: the ids must equal
+   (a)'s exactly, the scores within the reference's cross-process tolerance
+   (whether bit-equal is recorded), some returned rows must come from the
+   workers' clusters; (c) (a) and (b) over int8 blocks (B4 int8 and its
+   grouping); (e) one int8 worker is killed (SIGKILL) and the next batch
+   must respawn it once and return (c)'s ids; (d) 2 groups, each sharded
+   over a 1 x 2 mesh of the card, against the plain probe (one launch per
+   shard per group touched). No group may fail and no worker respawn
+   outside (e). The workers' own launches are not visible here: (b)'s
+   equality is their proof;
+10. probe path: the int8 tensor-core probe
    (``tensortruth_tpu_torch.scripts.probe_int8_mma.run()``) times B5's four
    variants at M=16384, K=1024, N=4096 and applies the reference's decision
    rule; B5 must have been launched, bf16 and int8, while it ran.
 
-The last five lines are the mesh phase's numbers (``{"mesh": ...}``:
+The last six lines are the mesh phase's numbers (``{"mesh": ...}``:
 placement seconds and device bytes per tier, request times, the shapes each
 shard gave each kernel), the server phase's (``{"server": ...}``), the
-card's name and power limit, a JSON object describing each kernel, and the
-final ``{"ok": true, "device": ...}`` line.
+multislice phase's (``{"multislice": ...}``: per dtype the routing ms, the
+batch ms, each group's rows, clusters and B4 shape, part bytes, write and
+load seconds, worker start seconds, the coordinator's device bytes, the
+overlaps and the max |err| against plain), the card's name and power limit,
+a JSON object describing each kernel, and the final ``{"ok": true,
+"device": ...}`` line.
 Nothing here imports JAX or the JAX package; the host code (index, chunker,
 config) is the port's own. All scratch files go to a temporary directory
 inside the checkout that is removed at exit.
@@ -124,6 +148,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import statistics
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
@@ -1521,7 +1546,9 @@ def run_capacity_path(torch, work: Path) -> tuple[dict, dict]:
     what the mesh path is held against: the single-device embedder, its
     embeddings of the 8 questions (f32, and bf16 on the card), their exact
     top-20 over the bf16 and the dequantised int8 corpus, and 32 corpus rows
-    (ids and f32 vectors) for self-retrieval."""
+    (ids and f32 vectors) for self-retrieval; and what the multislice path
+    splits into groups: the IVF indexes of (b) and (c), still on the card,
+    with their build seconds and nprobe."""
     import numpy as np
 
     from tensortruth_tpu_torch.app.config import TensorTruthTPUConfig
@@ -1597,7 +1624,8 @@ def run_capacity_path(torch, work: Path) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     engine = svc.load_engine(["docs", "capacity"], {"reranker_top_n": 5}, **load)
     r = engine.retriever
-    log(f"(b) IVF tier (bf16 blocks): loaded in {time.perf_counter() - t0:.1f} s")
+    ivf_build_s = {"bfloat16": time.perf_counter() - t0}
+    log(f"(b) IVF tier (bf16 blocks): loaded in {ivf_build_s['bfloat16']:.1f} s")
     check_ivf_placement(torch, r, torch.bfloat16, embedder.dim, "(b)")
     check(engine.pipeline is None, "(b) the fused query step is on for the IVF tier")
     log(f"(b) {gib(torch.cuda.memory_allocated())} allocated on the card")
@@ -1618,7 +1646,7 @@ def run_capacity_path(torch, work: Path) -> tuple[dict, dict]:
         f"{recall(torch.from_numpy(ivf_rows), exact_bf16):.4f} (not asserted: over random rows it would be "
         f"about nprobe/clusters; these queries' top rows are docs rows, which the random-weight encoder "
         f"puts close together)")
-    indexes = r.indexes
+    indexes, ivf_bf16 = r.indexes, r._ivf
     svc.clear_engines()
     del engine, r
     torch.cuda.empty_cache()
@@ -1626,7 +1654,8 @@ def run_capacity_path(torch, work: Path) -> tuple[dict, dict]:
     # (c) the IVF tier over int8 blocks: kernel B4's int8 variant
     t0 = time.perf_counter()
     r = MultiIndexEngine(indexes, corpus_dtype="int8", ivf_threshold=1_048_576, device="cuda")
-    log(f"(c) IVF tier (int8 blocks): built in {time.perf_counter() - t0:.1f} s")
+    ivf_build_s["int8"] = time.perf_counter() - t0
+    log(f"(c) IVF tier (int8 blocks): built in {ivf_build_s['int8']:.1f} s")
     check_ivf_placement(torch, r, torch.int8, embedder.dim, "(c)")
     log(f"(c) {gib(torch.cuda.memory_allocated())} allocated on the card")
     torch.cuda.synchronize()
@@ -1644,7 +1673,8 @@ def run_capacity_path(torch, work: Path) -> tuple[dict, dict]:
         f"(grouping {launches['ivf_group_probes']})")
     check_self_retrieval(r._ivf, rows, vecs, r.ivf_nprobe, "(c)")
     reference = {"embedder": embedder, "q_f32": q_f32, "q": q, "exact_bf16": exact_bf16, "exact_int8": exact_int8.clone(),
-                 "rows": rows, "vecs": vecs, "indexes": indexes}
+                 "rows": rows, "vecs": vecs, "indexes": indexes, "nprobe": r.ivf_nprobe,
+                 "ivf": {"bfloat16": ivf_bf16, "int8": r._ivf}, "ivf_build_s": ivf_build_s}
     return launches, reference
 
 
@@ -1929,7 +1959,320 @@ def run_mesh_path(torch, work: Path, ref: dict) -> tuple[dict, dict]:
     return {"mesh": str(mesh), "flat": flat, "ivf": ivf, "config": config, "global": workers}, launches
 
 
-# -- phase 9: the probe path --------------------------------------------------
+# -- phase 9: the multislice path ---------------------------------------------
+
+# The capacity path's IVF indexes (1024 clusters x 3072 rows x 1024, bf16 and
+# int8) split into cluster groups routed by the host; groups 2 and 3 are
+# served by worker processes on the same card.
+MULTISLICE_GROUPS = 4
+MULTISLICE_REMOTE = (2, 3)
+MULTISLICE_MESH = {"n_shards": 2, "n_data": 1}  # (d): 2 groups, each on a 1 x 2 mesh
+MULTISLICE_K = 20
+# Remote against in-process scores: the reference's cross-process tolerance
+# (tests/unit/test_transport.py); the ids must be equal.
+REMOTE_RTOL, REMOTE_ATOL = 1e-4, 1e-5
+
+
+def route_shapes(ms, q, nprobe: int) -> list[dict]:
+    """What the coordinator sends each group for ``q``: the queries routed to
+    it and its ``nprobe_g`` (0 and 0 for a group it skips)."""
+    probe_groups = ms.route(q, nprobe)
+    out = []
+    for g in range(len(ms.groups)):
+        hits = probe_groups == g
+        out.append({"group": g, "queries": int(hits.any(axis=1).sum()), "nprobe": int(hits.sum(axis=1).max())})
+    return out
+
+
+def group_rows(ivf, ms) -> list[dict]:
+    """Each group's cluster range, its rows and the block shape its B4 reads."""
+    lo = [g.cluster_lo for g in ms.groups] + [ivf.n_clusters]
+    return [{"group": g, "clusters": [lo[g], lo[g + 1]], "rows": int((ivf.row_map[lo[g] : lo[g + 1]] >= 0).sum()),
+             "blocks": [lo[g + 1] - lo[g], *ivf.blocks.shape[1:]], "dtype": str(ivf.blocks.dtype).removeprefix("torch.")}
+            for g in range(len(ms.groups))]
+
+
+def timed_search(torch, ms, q, nprobe: int, repeats: int = 3) -> tuple[tuple, list[float], dict]:
+    """The routed search, its launches counted from 0 before the first call;
+    returns (the first call's result, host ms of each call, synchronised,
+    and host ms of each touched group's transport call in each search: its
+    whole search, the copy back and, for a worker, the round trip)."""
+    from tensortruth_tpu_torch.ops.ivf import group_probes, probe_scores
+
+    group_ms = {}
+
+    def timed(g, search):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            result = search(*args, **kw)
+            group_ms.setdefault(g, []).append((time.perf_counter() - t0) * 1e3)
+            return result
+
+        return call
+
+    for g, t in enumerate(ms.transports):
+        t.search = timed(g, t.search)
+    torch.cuda.synchronize()
+    probe_scores.launches = probe_scores.launches_int8 = group_probes.launches = 0
+    times, first = [], None
+    try:
+        for _ in range(repeats):
+            t = time.perf_counter()
+            got = ms.search(q, MULTISLICE_K, nprobe=nprobe)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            first = first or got
+            check(ms.last_failed_groups == [], f"multislice: groups {ms.last_failed_groups} failed")
+    finally:
+        for t in ms.transports:
+            del t.search
+    return first, times, group_ms
+
+
+def group_medians(group_ms: dict) -> str:
+    return ", ".join(f"group {g} {statistics.median(v):.1f}" for g, v in sorted(group_ms.items()))
+
+
+def b4_launches(dtype: str) -> dict:
+    from tensortruth_tpu_torch.ops.ivf import group_probes, probe_scores
+
+    if dtype == "int8":
+        return {"ivf_probe_int8": probe_scores.launches_int8, "ivf_group_probes": group_probes.launches}
+    return {"ivf_probe": probe_scores.launches}
+
+
+def start_workers(ms, dtype: str, part_dir: Path, transports: list) -> dict:
+    """(b) / (c): write the remote groups' parts, start a supervised worker on
+    the card for each (all at once), attach them and drop the local copies.
+    Every transport started is appended to ``transports``."""
+    from tensortruth_tpu_torch.parallel.transport import SupervisedTransport
+
+    paths = {g: part_dir / f"{dtype}_group{g}.npz" for g in MULTISLICE_REMOTE}
+    t0 = time.perf_counter()
+    for g, path in paths.items():
+        ms.save_part(g, path)
+    write_s = time.perf_counter() - t0
+
+    def start(g):
+        return SupervisedTransport(paths[g], cluster_lo=ms.groups[g].cluster_lo, startup_timeout=WORKER_TIMEOUT_S,
+                                   device="cuda:0", log_path=part_dir / f"{dtype}_worker{g}.log")
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(paths)) as pool:
+        futures = {g: pool.submit(start, g) for g in paths}
+    errors = []
+    for g, fut in futures.items():
+        try:
+            transports.append(fut.result())
+            ms.attach_transport(g, transports[-1])
+        except Exception as e:  # every started worker is in ``transports`` before this raises
+            errors.append(f"group {g}: {e}")
+    check(not errors, f"multislice {dtype}: workers did not start: {errors}; logs "
+          + "; ".join((part_dir / f"{dtype}_worker{g}.log").read_text()[-2000:] for g in paths
+                      if (part_dir / f"{dtype}_worker{g}.log").exists()))
+    start_s = time.perf_counter() - t0
+    check(all(ms.groups[g].index is None for g in paths), f"multislice {dtype}: a remote group kept its local copy")
+    load_s = {}
+    for g in paths:
+        found = re.findall(r"in ([0-9.]+) s$", (part_dir / f"{dtype}_worker{g}.log").read_text(), re.M)
+        load_s[g] = float(found[-1]) if found else None
+    return {"part_bytes": {g: p.stat().st_size for g, p in paths.items()}, "part_write_s": write_s,
+            "worker_start_s": start_s, "worker_load_s": load_s, "paths": paths}
+
+
+def run_multislice_dtype(torch, ivf, dtype: str, q, ref, part_dir: Path, transports: list) -> dict:
+    """(a) the 4 groups in process, held against the plain probe, by
+    self-retrieval and beside the single-device search; (b) / (c) groups 2
+    and 3 in worker processes on the card: the same ids as (a)."""
+    import numpy as np
+
+    from tensortruth_tpu_torch.ops.ivf import ivf_search
+    from tensortruth_tpu_torch.parallel.multislice import MultiSliceIVF
+
+    name = f"multislice {dtype}"
+    nprobe, n_self = ref["nprobe"], len(ref["rows"])
+    ms = MultiSliceIVF(ivf, MULTISLICE_GROUPS)
+    base = ivf.blocks.untyped_storage().data_ptr()
+    check(all(g.index.blocks.untyped_storage().data_ptr() == base for g in ms.groups),
+          f"{name}: a group's blocks are not a view of the index")
+    t = time.perf_counter()
+    shapes = route_shapes(ms, q, nprobe)
+    route_ms = (time.perf_counter() - t) * 1e3
+    touched = [s["group"] for s in shapes if s["queries"]]
+
+    # (a) in process
+    got, times, group_ms = timed_search(torch, ms, q, nprobe)
+    launches = b4_launches(dtype)
+    check(ms.last_touched_groups == touched and all(n == len(touched) * 3 for n in launches.values()),
+          f"{name} (a): launches {launches} over 3 searches, groups touched {ms.last_touched_groups} (routing {touched})")
+    err, swaps = check_rows_agree(f"{name} (a)", got, ms.search(q, MULTISLICE_K, nprobe=nprobe, plain=True))
+    rate = float((got[1][:n_self, 0] == ref["rows"]).mean())
+    check(rate >= MIN_SELF_RETRIEVAL, f"{name} (a): self-retrieval {rate} < {MIN_SELF_RETRIEVAL}")
+    single = ivf_search(ivf, q, MULTISLICE_K, nprobe=nprobe)  # also its warm-up
+    overlap = recall_of(torch.from_numpy(got[1]), torch.from_numpy(single[1]))
+    single_ms = []  # timed as often as the routed batch
+    for _ in times:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ivf_search(ivf, q, MULTISLICE_K, nprobe=nprobe)
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t) * 1e3)
+    ratio = statistics.median(times) / statistics.median(single_ms)
+    groups = group_rows(ivf, ms)
+    for g, s in zip(groups, shapes):
+        g.update(queries=s["queries"], nprobe=s["nprobe"])
+    log(f"{name} (a): {MULTISLICE_GROUPS} groups in process, rows "
+        + ", ".join(f"{g['rows']} in clusters {g['clusters'][0]}..{g['clusters'][1]}" for g in groups)
+        + f"; routing {route_ms:.3f} ms (host, f32), batch of {len(q)} ms " + ", ".join(f"{x:.1f}" for x in times)
+        + " (single-device search ms " + ", ".join(f"{x:.1f}" for x in single_ms)
+        + f"; ratio of the medians {ratio:.2f}; median ms of each group's call in the batch: "
+        + group_medians(group_ms) + f"); launches {launches} over 3 batches; against the plain "
+        f"probe max |err| {err:.2e} ({swaps} row swaps within tolerance); self-retrieval {rate:.4f}; top-20 overlap "
+        f"with the single-device search {overlap:.4f}")
+    out = {"route_ms": route_ms, "batch_ms": times, "single_device_ms": single_ms, "median_ratio": ratio,
+           "group_ms": {str(g): v for g, v in group_ms.items()}, "groups": groups,
+           "launches": launches, "max_abs_err": err, "row_swaps": swaps,
+           "self_retrieval": rate, "overlap_single_device": overlap}
+
+    # (b) / (c): groups 2 and 3 through worker processes
+    started = start_workers(ms, dtype, part_dir, transports)
+    sup = transports[-len(MULTISLICE_REMOTE):]
+    remote, times, group_ms = timed_search(torch, ms, q, nprobe)
+    launches = b4_launches(dtype)
+    local_touched = [g for g in touched if g not in MULTISLICE_REMOTE]
+    check(all(n == len(local_touched) * 3 for n in launches.values()),
+          f"{name} (remote): coordinator launches {launches}, wanted {len(local_touched)} per batch")
+    check(all(st.respawn_count == 0 for st in sup), f"{name}: a worker respawned")
+    check(np.array_equal(remote[1], got[1]), f"{name}: remote ids differ from the in-process ids")
+    np.testing.assert_allclose(remote[0], got[0], rtol=REMOTE_RTOL, atol=REMOTE_ATOL)
+    bit_equal = bool(np.array_equal(remote[0], got[0]))
+    owner = np.full(ivf.n_actual, -1, np.int64)
+    for g in groups:
+        rows = ivf.row_map[g["clusters"][0] : g["clusters"][1]]
+        owner[rows[rows >= 0]] = g["group"]
+    from_remote = int(np.isin(owner[remote[1][remote[1] >= 0]], MULTISLICE_REMOTE).sum())
+    check(from_remote > 0, f"{name}: no returned row came from a worker's clusters")
+    held = sum(t.numel() * t.element_size() for g in ms.groups if g.index is not None
+               for t in (g.index.blocks, g.index.valid, g.index.scales) if t is not None)
+    log(f"{name} (remote): groups {list(MULTISLICE_REMOTE)} in worker processes on the card: parts "
+        + ", ".join(f"{gib(n)}" for n in started["part_bytes"].values())
+        + f" written in {started['part_write_s']:.1f} s; workers up in {started['worker_start_s']:.1f} s (loads "
+        + ", ".join(f"{s} s" for s in started["worker_load_s"].values()) + "); batch ms "
+        + ", ".join(f"{x:.1f}" for x in times) + " (median ms of each group's call: " + group_medians(group_ms)
+        + f"); ids equal to (a), scores bit-equal: {bit_equal}; "
+        f"{from_remote} of {remote[1].size} rows from the workers' clusters; coordinator launches {launches} "
+        f"(the workers' launches are theirs, not counted here); groups held in process {gib(held)}, "
+        f"{gib(torch.cuda.memory_allocated())} allocated by the coordinator in all")
+    out["remote"] = {"batch_ms": times, "group_ms": {str(g): v for g, v in group_ms.items()},
+                     "coordinator_launches": launches,
+                     "bit_equal": bit_equal, "rows_from_workers": from_remote,
+                     "coordinator_group_bytes": held, "coordinator_allocated": torch.cuda.memory_allocated(),
+                     **{k: {str(g): v for g, v in started[k].items()} if isinstance(started[k], dict) else started[k]
+                        for k in ("part_bytes", "part_write_s", "worker_start_s", "worker_load_s")}}
+    return out, ms, remote, started["paths"]
+
+
+def run_multislice_path(torch, work: Path, ref: dict) -> tuple[dict, dict]:
+    """(a)-(e) over the capacity path's IVF indexes at BGE-M3 width: 40
+    queries (32 corpus rows, self-retrieval, and the 8 questions), nprobe 32,
+    top-20, 3 batches per step. Returns the phase's numbers and the
+    coordinator's B4 launches (counted from 0 before each step's batches and
+    read after them, summed over (a)-(d))."""
+    import signal
+
+    import numpy as np
+
+    from tensortruth_tpu_torch.ops.ivf import ShardedIVF
+    from tensortruth_tpu_torch.parallel import make_mesh
+    from tensortruth_tpu_torch.parallel.multislice import MultiSliceIVF
+
+    q = np.concatenate([ref["vecs"], ref["q_f32"]]).astype(np.float32)
+    nprobe = ref["nprobe"]
+    part_dir = work / "multislice"
+    part_dir.mkdir()
+    transports = []
+    out = {"queries": len(q), "k": MULTISLICE_K, "nprobe": nprobe, "n_groups": MULTISLICE_GROUPS, "batches_per_step": 3,
+           "remote_groups": list(MULTISLICE_REMOTE), "ivf_build_s": ref["ivf_build_s"],
+           "workers_launches": "not visible to the coordinator: proved by the remote ids equal to (a)'s"}
+    log(f"multislice: reusing the capacity path's IVF indexes (built in "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in ref["ivf_build_s"].items()) + ")")
+    t_phase = time.perf_counter()
+    try:
+        # (a) + (b) bf16
+        out["bfloat16"], ms, _, paths = run_multislice_dtype(torch, ref["ivf"]["bfloat16"], "bfloat16", q, ref,
+                                                             part_dir, transports)
+        ms.close()  # shuts the bf16 workers down
+        for path in paths.values():
+            path.unlink()
+        # (c) int8: (a) and (b) again
+        out["int8"], ms8, remote8, _ = run_multislice_dtype(torch, ref["ivf"]["int8"], "int8", q, ref, part_dir,
+                                                           transports)
+
+        # (e) elastic recovery: SIGKILL group 3's worker; the next batch respawns it
+        sup = {g: ms8.transports[g] for g in MULTISLICE_REMOTE}
+        victim = sup[MULTISLICE_REMOTE[-1]]
+        pid = victim.worker_pid
+        os.kill(pid, signal.SIGKILL)
+        victim._proc.wait(timeout=60)
+        t = time.perf_counter()
+        again = ms8.search(q, MULTISLICE_K, nprobe=nprobe)
+        torch.cuda.synchronize()
+        recover_ms = (time.perf_counter() - t) * 1e3
+        check(victim.respawn_count == 1 and victim.worker_pid not in (None, pid),
+              f"multislice (e): respawns {victim.respawn_count}, pid {victim.worker_pid} (was {pid})")
+        check(all(st.respawn_count == 0 for g, st in sup.items() if st is not victim), "multislice (e): another worker respawned")
+        check(ms8.last_failed_groups == [], f"multislice (e): groups {ms8.last_failed_groups} failed")
+        check(np.array_equal(again[1], remote8[1]), "multislice (e): ids after the respawn differ from (c)'s")
+        log(f"multislice (e): worker of group {MULTISLICE_REMOTE[-1]} (pid {pid}) killed; the next int8 batch "
+            f"respawned it (pid {victim.worker_pid}) and answered in {recover_ms:.1f} ms with (c)'s ids")
+        out["elastic"] = {"recover_ms": recover_ms, "respawns": victim.respawn_count, "failed_groups": []}
+        ms8.close()
+        del ms8
+
+        # (d) 2 groups, each held on a 1 x 2 mesh of the card, bf16
+        mesh = make_mesh(**MULTISLICE_MESH, devices=[torch.device("cuda", 0)] * MULTISLICE_MESH["n_shards"])
+        t = time.perf_counter()
+        msd = MultiSliceIVF(ref["ivf"]["bfloat16"], 2, meshes=[mesh, mesh])
+        place_s = time.perf_counter() - t
+        check(all(isinstance(g.index, ShardedIVF) for g in msd.groups), "multislice (d): a group is not sharded")
+        touched = [s["group"] for s in route_shapes(msd, q, nprobe) if s["queries"]]
+        got, times, group_ms = timed_search(torch, msd, q, nprobe)
+        launches = b4_launches("bfloat16")
+        n_shards = MULTISLICE_MESH["n_shards"]
+        check(launches["ivf_probe"] == 3 * n_shards * len(touched),
+              f"multislice (d): launches {launches} over 3 batches, wanted one per shard per group touched ({touched})")
+        err, swaps = check_rows_agree("multislice (d)", got, msd.search(q, MULTISLICE_K, nprobe=nprobe, plain=True))
+        rate = float((got[1][: len(ref["rows"]), 0] == ref["rows"]).mean())
+        check(rate >= MIN_SELF_RETRIEVAL, f"multislice (d): self-retrieval {rate} < {MIN_SELF_RETRIEVAL}")
+        shards = [{"group": g.group_id, "shard": s, "blocks": list(arrays[1].shape), "centroids": list(arrays[0].shape)}
+                  for g in msd.groups for s, by_dev in sorted(g.index.parts.items()) for arrays in by_dev.values()]
+        nbytes_d = sum(g.index.nbytes() for g in msd.groups)
+        log(f"multislice (d): 2 groups, each on a 1 x {n_shards} mesh of the card: placed in {place_s:.1f} s "
+            f"({gib(nbytes_d)}); batch ms " + ", ".join(f"{x:.1f}" for x in times) + " (median ms of each group's "
+            "call: " + group_medians(group_ms) + f"); launches {launches} over 3 "
+            f"batches; against the plain probe max |err| {err:.2e} ({swaps} row swaps); self-retrieval {rate:.4f}")
+        out["mesh"] = {"place_s": place_s, "device_bytes": nbytes_d, "batch_ms": times,
+                       "group_ms": {str(g): v for g, v in group_ms.items()},
+                       "launches": launches, "max_abs_err": err, "self_retrieval": rate,
+                       "shards": shards}
+        del msd
+    finally:
+        for st in transports:
+            try:
+                st.close()
+            finally:
+                st._kill()
+        shutil.rmtree(part_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    launches = {"ivf_probe": out["bfloat16"]["launches"]["ivf_probe"] + out["mesh"]["launches"]["ivf_probe"]
+                + out["bfloat16"]["remote"]["coordinator_launches"]["ivf_probe"],
+                **{k: out["int8"]["launches"][k] + out["int8"]["remote"]["coordinator_launches"][k]
+                   for k in ("ivf_probe_int8", "ivf_group_probes")}}
+    return out, launches
+
+
+# -- phase 10: the probe path --------------------------------------------------
 
 
 def run_probe_path() -> dict:
@@ -2009,8 +2352,11 @@ def main() -> None:
         log(f"capacity path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         mesh, mesh_launches = run_mesh_path(torch, work, reference)
-        del reference
         log(f"mesh path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        multislice, multislice_launches = run_multislice_path(torch, work, reference)
+        del reference
+        log(f"multislice path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         launches |= run_probe_path()
         log(f"probe path: {time.perf_counter() - t0:.1f} s")
@@ -2039,6 +2385,20 @@ def main() -> None:
         by_path["mesh"] = n
         measured[name]["mesh_shards"] = shards[name]
         launches[name] += n
+    # The multislice path runs B4 in every in-process group and in every
+    # worker; only the coordinator's own launches are counted here, on the
+    # shapes each group gave it (``multislice_groups``).
+    ms_groups = {"ivf_probe": {"groups": multislice["bfloat16"]["groups"], "mesh_shards": multislice["mesh"]["shards"]},
+                 "ivf_probe_int8": {"groups": multislice["int8"]["groups"]},
+                 "ivf_group_probes": {"groups": multislice["int8"]["groups"]}}
+    ms_err = {"ivf_probe": max(multislice["bfloat16"]["max_abs_err"], multislice["mesh"]["max_abs_err"]),
+              "ivf_probe_int8": multislice["int8"]["max_abs_err"]}
+    for name, n in multislice_launches.items():
+        measured[name].setdefault("launches_by_path", {})["multislice"] = n
+        measured[name]["multislice_groups"] = {**ms_groups[name], "workers": "launches not visible to the coordinator"}
+        if name in ms_err:
+            measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], ms_err[name])
+        launches[name] += n
     kernels = [
         {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}
         for name in KERNELS
@@ -2048,6 +2408,7 @@ def main() -> None:
     print(json.dumps({"server": {k: server[k] for k in (
         "upload_s", "upload_chunks", "engine_load_s", "rest_chat_s", "messages", "from_upload", "searches",
         "peak_bytes", "launches", "trace_b1_events")}}))
+    print(json.dumps({"multislice": multislice}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

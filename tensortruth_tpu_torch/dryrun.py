@@ -6,17 +6,21 @@
 :func:`dryrun_multidevice` runs the reference's ``_dryrun_payload`` query
 step at tiny width on a 2 x (n/2) mesh (1 x n for odd n): the query batch
 embedded data-parallel, a row-sharded top-k with its candidates merged, the
-cluster-sharded IVF search, and the cross-encoder rerank of the (query,
-chunk) pairs data-parallel. The reference's multislice stages (socket-routed
-cluster groups) are not ported yet and are left out. Each data-parallel
-batch is padded to a multiple of the mesh size (the port's DP forwards split
-it over every slot). ``devices`` may repeat a device to place several slots
-on it; by default the mesh spans every CUDA card.
+cluster-sharded IVF search, the multi-slice tier (host routing over IVF
+cluster groups, each group sharded over the mesh; then one group served by
+a slice-worker process over the socket transport, whose rows must equal the
+all-local run's), and the cross-encoder rerank of the (query, chunk) pairs
+data-parallel. Each data-parallel batch is padded to a multiple of the mesh
+size (the port's DP forwards split it over every slot). ``devices`` may
+repeat a device to place several slots on it; by default the mesh spans
+every CUDA card. The worker holds its group on the mesh's lead device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -25,6 +29,7 @@ from tensortruth_tpu_torch.models.embedder import make_dp_forward
 from tensortruth_tpu_torch.models.xlmr import XLMRConfig, XLMRModel, cls_embed, rerank_logits
 from tensortruth_tpu_torch.ops.ivf import build_ivf, ivf_search_sharded, shard_ivf
 from tensortruth_tpu_torch.parallel.mesh import DATA_AXIS, local_devices, make_mesh
+from tensortruth_tpu_torch.parallel.multislice import MultiSliceIVF
 from tensortruth_tpu_torch.parallel.sharded_topk import shard_corpus, sharded_topk
 from tensortruth_tpu_torch.tokenization import load_tokenizer
 
@@ -73,6 +78,21 @@ def dryrun_multidevice(n_devices: int, devices: list | None = None) -> dict:
         if ivf_rows.shape != (b, k) or int(ivf_rows.max()) >= 256:
             raise RuntimeError(f"sharded IVF gave rows {ivf_rows.tolist()}")
 
+        # stage 2c: multi-slice host routing over 2 cluster groups, each sharded over the mesh
+        q_host = q.cpu().numpy()
+        ms_vals, ms_rows = MultiSliceIVF(ivf, n_groups=2, meshes=[mesh, mesh]).search(q_host, k=k, nprobe=2)
+        if ms_rows.shape != (b, k) or int(ms_rows.max()) >= 256:
+            raise RuntimeError(f"multislice IVF gave rows {ms_rows.tolist()}")
+
+        # stage 2d: group 1 served by a slice-worker process over the socket
+        # transport; the local copy is dropped, so its rows can only have
+        # crossed the process boundary, and they must equal the all-local run's
+        ms_remote = MultiSliceIVF(dataclasses.replace(ivf, blocks=ivf.blocks.to(mesh.lead)), n_groups=2)
+        _, local_rows = ms_remote.search(q_host, k=k, nprobe=8)
+        remote_rows = _remote_group_search(ms_remote, q_host, k, nprobe=8, device=str(mesh.lead))
+        if not np.array_equal(remote_rows, local_rows):
+            raise RuntimeError(f"cross-process multislice rows {remote_rows.tolist()} != {local_rows.tolist()}")
+
         # stage 3: cross-encoder rerank of the (query, chunk) pairs, data-parallel
         tok = load_tokenizer()
         texts = [f"chunk {i} body words for the rerank pair" for i in range(64)]
@@ -83,9 +103,36 @@ def dryrun_multidevice(n_devices: int, devices: list | None = None) -> dict:
                         _pad_rows(mask, multiple).astype(np.int32))
         if logits.shape[0] < b * k or not torch.isfinite(logits).all():
             raise RuntimeError("DP rerank gave no finite logit per pair")
-    out.update(embed=tuple(q.shape), topk=tuple(idx.shape), ivf=ivf_rows.shape, pairs=b * k,
-               rerank_batch=logits.shape[0])
+    out.update(embed=tuple(q.shape), topk=tuple(idx.shape), ivf=ivf_rows.shape, multislice=ms_rows.shape,
+               multislice_remote=remote_rows.shape, pairs=b * k, rerank_batch=logits.shape[0])
     return out
+
+
+def _remote_group_search(ms: MultiSliceIVF, q: np.ndarray, k: int, nprobe: int, device: str) -> np.ndarray:
+    """Serve ``ms``'s group 1 from a slice worker on ``device`` and search
+    through it; returns the rows. The worker is shut down, or killed. A
+    worker on a card may have to build the kernels; one on the CPU builds
+    none and gets a minute."""
+    from tensortruth_tpu_torch.parallel.transport import SocketTransport, spawn_slice_worker
+
+    with tempfile.TemporaryDirectory() as td:
+        part = f"{td}/g1.npz"
+        ms.save_part(1, part)
+        timeout = 300 if torch.device(device).type == "cuda" else 60
+        proc, port = spawn_slice_worker(part, cluster_lo=ms.groups[1].cluster_lo, startup_timeout=timeout,
+                                        device=device)
+        try:
+            transport = SocketTransport("127.0.0.1", port)
+            ms.attach_transport(1, transport)
+            if ms.groups[1].index is not None:
+                raise RuntimeError("the local copy of group 1 was not dropped")
+            _, rows = ms.search(q, k=k, nprobe=nprobe)
+            transport.shutdown_worker()
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+    return rows
 
 
 if __name__ == "__main__":

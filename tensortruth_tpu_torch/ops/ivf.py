@@ -390,7 +390,9 @@ class IVFIndex:
 
 def _as_tensor(arr) -> torch.Tensor:
     """A host array (numpy, including ml_dtypes bfloat16) as a torch tensor
-    with the same bits."""
+    with the same bits; a torch tensor is taken as it is."""
+    if torch.is_tensor(arr):
+        return arr
     arr = np.array(arr)  # a writable copy: the source may be read-only
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
@@ -401,8 +403,9 @@ def ivf_index_from_arrays(
     centroids, blocks, row_map, n_actual: int, scales=None, device="cuda"
 ) -> IVFIndex:
     """An :class:`IVFIndex` on ``device`` from host arrays, e.g. the arrays
-    of an index the reference package built (``np.asarray`` of its fields):
-    the same bits, so both packages can search one index."""
+    of an index the reference package built (``np.asarray`` of its fields),
+    or from torch tensors: the same bits, so both packages can search one
+    index."""
     device = torch.device(device)
     return IVFIndex(
         centroids=_as_tensor(centroids).to(device, torch.float32),
@@ -593,31 +596,37 @@ def _ivf_search_device(
     k: int,
     nprobe: int,
     scales: torch.Tensor | None = None,
+    plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Device part: probe the top-``nprobe`` clusters per query, exact top-k
     inside. Returns (scores (B, k_eff), padded positions (B, k_eff) encoded
-    as cluster * rows_per_cluster + slot)."""
+    as cluster * rows_per_cluster + slot). ``plain`` probes through
+    :func:`probe_scores_plain`."""
     b = q.shape[0]
     rpc = blocks.shape[1]
     _, probe = _sorted_topk(mm_f32(q, centroids.t()), nprobe)  # (B, nprobe)
     probe = probe.to(torch.int32)
-    flat = probe_scores(probe, q, blocks, valid, scales).reshape(b, nprobe * rpc)
+    flat = (probe_scores_plain if plain else probe_scores)(probe, q, blocks, valid, scales).reshape(b, nprobe * rpc)
     slots = torch.arange(rpc, device=q.device)
     pos = (probe[:, :, None].long() * rpc + slots).reshape(b, nprobe * rpc)
     top_v, top_i = _sorted_topk(flat, min(k, nprobe * rpc))
     return top_v, torch.gather(pos, 1, top_i)
 
 
-def ivf_search(index: IVFIndex, q, k: int, nprobe: int = 8) -> tuple[np.ndarray, np.ndarray]:
+def ivf_search(
+    index: IVFIndex, q, k: int, nprobe: int = 8, plain: bool = False
+) -> tuple[np.ndarray, np.ndarray]:
     """Host wrapper: (scores (B, k) f32, original row ids (B, k) i64, -1
-    pads). The query scores in bf16 against int8 blocks, never in int8."""
+    pads). The query scores in bf16 against int8 blocks, never in int8.
+    ``plain`` probes through :func:`probe_scores_plain` (what B4 is held
+    against)."""
     q_dtype = torch.bfloat16 if index.scales is not None else index.blocks.dtype
     device = index.blocks.device
     q = (q if torch.is_tensor(q) else host_tensor(q)).to(device, q_dtype)
     with torch.inference_mode():
         vals, pos = _ivf_search_device(
             q, index.centroids.to(q_dtype), index.blocks, index.valid, k,
-            min(nprobe, index.n_clusters), scales=index.scales,
+            min(nprobe, index.n_clusters), scales=index.scales, plain=plain,
         )
     vals, pos = vals.cpu().numpy(), pos.cpu().numpy()
     rows = index.row_map.reshape(-1)[pos]

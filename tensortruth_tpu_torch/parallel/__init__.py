@@ -11,6 +11,10 @@ __all__ = [
     "sharded_topk",
 ]
 
-# The multi-process global mesh (parallel/distributed.py) is imported by the
-# deployments that form a torch.distributed world; importing it here would
-# load the distributed runtime into every single-process user.
+# The multi-process paths are imported lazily by the deployments that use
+# them: the global mesh (parallel/distributed.py) by those that form a
+# torch.distributed world, and the multi-slice tier (parallel/multislice.py:
+# host-routed IVF cluster groups, in process or in slice-worker processes
+# over parallel/transport.py) by those past one device's memory. Importing
+# them here would load the distributed runtime and the socket transport into
+# every single-process user.

@@ -8,7 +8,9 @@
   answers one ``retrieve()`` on a 2 x 2 mesh of CPU slots:
   afterwards no module of the JAX package (``tensortruth_tpu`` or under it),
   no ``jax`` and no ``triton`` is in ``sys.modules``. The same holds after
-  a document upload and a WS chat through the port's app on the CPU.
+  a document upload and a WS chat through the port's app on the CPU, and in
+  a slice worker spawned on the CPU that has answered a search (its import
+  log, ``PYTHONPROFILEIMPORTTIME``, names no such module).
 * No source file of the port and not ``chip_smoke.py`` imports the JAX
   package or jax, lazily or not (an AST walk over every import).
 * The CUDA-only wrappers (B1, B2, B3, B4, B5) raise on inputs their kernels
@@ -152,6 +154,36 @@ def test_cpu_chat_through_the_app_loads_no_jax(tmp_path):
     n_sources, foreign = out.stdout.strip().splitlines()[-1].split(" ", 1)
     assert int(n_sources) == 1
     assert foreign == "[]", foreign
+
+
+def test_spawned_slice_worker_loads_no_jax(tmp_path):
+    """A slice worker spawned by the port's transport imports nothing of the
+    JAX package, jax or triton, also after serving a search."""
+    import numpy as np
+
+    from tensortruth_tpu_torch.parallel.transport import SocketTransport, save_ivf_part, spawn_slice_worker
+
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((400, 16)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    save_ivf_part(ivf.build_ivf(emb, n_clusters=4, sample_size=400, kmeans_iters=2, device="cpu"), tmp_path / "p.npz")
+    log = tmp_path / "worker.log"
+    proc, port = spawn_slice_worker(tmp_path / "p.npz", startup_timeout=60, device="cpu", log_path=log,
+                                    env_extra={"PYTHONPROFILEIMPORTTIME": "1", "OMP_NUM_THREADS": "1"})
+    try:
+        t = SocketTransport("127.0.0.1", port, timeout=60)
+        vals, rows = t.search(emb[:2], k=3, nprobe=2)
+        assert (rows[:, 0] == [0, 1]).all()
+        t.shutdown_worker()
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    imported = [line.rsplit("|", 1)[1].strip() for line in log.read_text().splitlines()
+                if line.startswith("import time:") and "|" in line]
+    assert {"tensortruth_tpu_torch.parallel.multislice", "tensortruth_tpu_torch.ops.ivf", "torch"} <= set(imported)
+    foreign = sorted(m for m in imported if m.split(".")[0] in ("tensortruth_tpu", "jax", "jaxlib", "triton"))
+    assert foreign == [], foreign
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:

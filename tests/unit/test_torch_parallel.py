@@ -25,6 +25,9 @@ port's wrappers their plain versions (the tensors lie on the CPU).
   ``rag.mesh.enabled`` return the reference's nodes.
 * ``my_row_range`` / ``my_cluster_range`` equal the reference's for the same
   world size and shard count.
+* The dry run on CPU slots runs every stage, the multi-slice ones (2c: cluster
+  groups sharded over the mesh; 2d: one group served by a slice-worker
+  process on the CPU, rows equal to the all-local run's) included.
 """
 
 import importlib
@@ -514,4 +517,6 @@ def test_dryrun_multidevice_on_cpu_slots(n):
     b = 4 if n == 8 else 2
     assert out["mesh"] == ({"data": 2, "shards": 4} if n == 8 else {"data": 1, "shards": 3})
     assert out["embed"] == (b, 64) and out["topk"] == (b, 4) and out["ivf"] == (b, 4)
+    # stages 2c and 2d: the multi-slice tier, in process and across a worker process
+    assert out["multislice"] == (b, 4) and out["multislice_remote"] == (b, 4)
     assert out["rerank_batch"] % n == 0 and out["rerank_batch"] >= out["pairs"]
