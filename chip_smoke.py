@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's index build, server, online query path, mesh and multislice tiers once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's index build, server, online query path, serving under load, mesh and multislice
+tiers once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -12,7 +13,7 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    timed with CUDA events, each beside its bound (the least time the card
    could take for the same work, from this run's inputs) and, where one
    PyTorch call computes the same function, beside that call: B1 fused
-   top-k, B2 its int8 variant, B3 attention at S = 512, 1024 and 2048
+   top-k (also at query batches of 16 and 64), B2 its int8 variant, B3 attention at S = 512, 1024 and 2048
    (beside ``scaled_dot_product_attention``; the ``kernels`` line gives
    S = 1024's numbers and every S under ``by_seq``), B4 the IVF probe over bf16 and over
    int8 blocks (the int8 path also bit for bit on integer rows at scale 1,
@@ -69,7 +70,30 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    plain version on the mask of every forward that took it, and, in a
    profiled replay of one request, that no stream synchronise falls between
    the rerank stage's batch launches are checked;
-7. capacity path: one more module brings the docs to 2,097,152 rows (the
+7. serving path: the main path's index served again by the port's app in
+   this process through the port's serving driver
+   (``scripts/measure_serving_e2e.py``'s ``launch(in_process=True)`` and
+   ``drive``, its fake Ollama answering): 32 concurrent WebSocket sessions,
+   2 warm-up messages each, a 10 s window. No error frame and no answer
+   without sources; the batcher must coalesce (fewer batches than
+   requests); the window's first 32 queries, sent again one at a time, must
+   give the concurrent answers' sources (ids and order, scores within the
+   serving driver's SCORE_TOL, two neighbours within it may swap); B1 must
+   be launched, and every B1 search of the phase (the embedder's query
+   batches of 1, 16 and 64 rows) is held against ``fused_topk_plain`` on
+   the same query batch and corpus (TOPK_TOL); B3, launched on the pairs of
+   merged parents, is held against its plain version on every mask the
+   phase gave it;
+8. orchestrator path, on the same server and fake Ollama: one ``docs``
+   leaf asked verbatim in a session whose model (``fake-tools``) reports
+   tool calling, through the port's real provider code: a ``tool_phase``
+   naming ``rag_query`` with the leaf as its query, then ``sources`` holding
+   the leaf and equal to the direct path's for the same text, then
+   ``done``; its B1 search is held against a plain search, B3 as above;
+9. recall path: ``scripts/measure_recall.py``'s ``run()``, B1 against the
+   exact top-k over 1,000,000 x 1024 bf16 rows at k = 10 and 100, each
+   recall at least its prediction less RECALL_MARGIN;
+10. capacity path: one more module brings the docs to 2,097,152 rows (the
    smallest power of two above the 2M-row IVF threshold). Through
    ``load_engine`` it is served (a) as the int8 flat tier (``corpus_dtype:
    int8``: kernel B2) and (b) with default params as the IVF tier over bf16
@@ -79,7 +103,7 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    int8 variant and its grouping kernel) and answers one 32-query batch. Each checks its placement,
    its answers, a recall or self-retrieval rate, and that its kernel was
    launched while it was driven;
-8. mesh path, over the capacity path's indexes and at the same widths, on
+11. mesh path, over the capacity path's indexes and at the same widths, on
    a 2 x 4 mesh whose eight slots all sit on the card (no number of it is a
    multi-GPU figure): (a) the bf16 and (b) the int8 flat tier row-sharded
    over its 4 shards through ``load_engine(mesh=...)``, 4 ``retrieve()``
@@ -99,7 +123,7 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    (TOPK_TOL / PROBE_TOL), and against the exact top-20 (MIN_RECALL) or by
    self-retrieval; both ranks of (e) must return exactly (a)'s and (b)'s
    top-20. B1, B2 and B4 must be launched while (a)-(d) are driven;
-9. multislice path, over the capacity path's IVF indexes (1024 clusters x
+12. multislice path, over the capacity path's IVF indexes (1024 clusters x
    3072 rows x 1024, bf16 and int8), nprobe 32, top-20, 40 queries (the 32
    corpus rows of the capacity path, self-retrieval, and the 8 questions),
    3 batches per step: (a) ``MultiSliceIVF`` with 4 cluster groups in this
@@ -119,18 +143,22 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
    shard per group touched). No group may fail and no worker respawn
    outside (e). The workers' own launches are not visible here: (b)'s
    equality is their proof;
-10. probe path: the int8 tensor-core probe
+13. probe path: the int8 tensor-core probe
    (``tensortruth_tpu_torch.scripts.probe_int8_mma.run()``) times B5's four
    variants at M=16384, K=1024, N=4096 and applies the reference's decision
    rule; B5 must have been launched, bf16 and int8, while it ran.
 
-The last six lines are the mesh phase's numbers (``{"mesh": ...}``:
+The last nine lines are the mesh phase's numbers (``{"mesh": ...}``:
 placement seconds and device bytes per tier, request times, the shapes each
 shard gave each kernel), the server phase's (``{"server": ...}``), the
 multislice phase's (``{"multislice": ...}``: per dtype the routing ms, the
 batch ms, each group's rows, clusters and B4 shape, part bytes, write and
 load seconds, worker start seconds, the coordinator's device bytes, the
-overlaps and the max |err| against plain), the card's name and power limit,
+overlaps and the max |err| against plain), the serving phase's
+(``{"serving": ...}``: messages/s, p50 and p95, the batcher's counters,
+the batched-vs-sequential comparison, launches), the orchestrator phase's
+(``{"orchestrator": ...}``), the recall phase's (``{"recall": ...}``),
+the card's name and power limit,
 a JSON object describing each kernel, and the final ``{"ok": true,
 "device": ...}`` line.
 Nothing here imports JAX or the JAX package; the host code (index, chunker,
@@ -145,7 +173,6 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import tempfile
 import time
 import statistics
@@ -258,14 +285,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
-
-
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds per call of ``fn`` (CUDA events)."""
     for _ in range(warmup):
@@ -344,6 +363,11 @@ def check_fused_topk(torch) -> dict:
     got, want = fused_topk(q, e, k), fused_topk_plain(q, e, k)
     torch.cuda.synchronize()
     err, swapped = check_topk_agrees("fused_topk", got, want)
+    # The embedder's other query-batch buckets on the serving path: 16 pads
+    # to one 32-query block, 64 takes two (another stream schedule).
+    for other in (16, 64):
+        oq = unit_rows(torch, gen, other, d, torch.bfloat16)
+        err = max(err, check_topk_agrees(f"fused_topk B={other}", fused_topk(oq, e, k), fused_topk_plain(oq, e, k))[0])
 
     # Planted ties: integer-valued rows make every dot product exact in f32
     # whatever the summation order, so tie order must match exactly.
@@ -357,7 +381,7 @@ def check_fused_topk(torch) -> dict:
     ms, plain_ms = in_turns(torch, lambda: fused_topk(q, e, k), lambda: fused_topk_plain(q, e, k))
     bnd = bound(nbytes(q, e, *got), 2 * b * n * d)
     log(
-        f"kernel fused_topk B={b} N={n} D={d} k={k} bf16: max_abs_err={err:.3g} "
+        f"kernel fused_topk B={b} (and 16, 64) N={n} D={d} k={k} bf16: max_abs_err={err:.3g} "
         f"(tol {TOPK_TOL}), near-tie swaps={swapped}, planted ties exact; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
     )
@@ -1199,9 +1223,10 @@ SERVER_MODULES = ["corpus"]  # 13,824 leaves + the session's own index: B1
 SERVER_QUESTION = "How does the engine merge leaf chunks into their parents?"
 # The chats in the order they search the corpus (``/help`` does not).
 SERVER_SEARCHES = ["REST chat", "leaf question", "passage", "profiled chat"]
-# The direct RAG path, which a session takes when no provider reports a
-# tool-capable model (the card has none): the orchestrator's gate would ask
-# a provider for the model's capabilities.
+# This phase holds the direct RAG path, with a stub chat model seated in the
+# service; the orchestrator's path, which a default session takes when its
+# model reports tool calling, is driven by its own phase against a fake
+# Ollama (run_orchestrator_path).
 SERVER_PARAMS = {"orchestrator_enabled": False}
 
 
@@ -1262,9 +1287,10 @@ def trace_names_b1(path: str) -> int:
 
 @contextmanager
 def b1_searches():
-    """(query, k, returned scores, returned rows) of every B1 search while
-    the block runs: ``pipeline.py``'s ``fused_topk``, through which the
-    server's queries reach the corpus, is wrapped."""
+    """(query, k, returned scores, returned rows, corpus, keyword arguments)
+    of every B1 search while the block runs: ``pipeline.py``'s
+    ``fused_topk``, through which the server's queries reach the corpus, is
+    wrapped."""
     from tensortruth_tpu_torch import pipeline
 
     searches = []
@@ -1272,7 +1298,7 @@ def b1_searches():
 
     def recorded(q, emb, k, **kwargs):
         vals, idx = search(q, emb, k, **kwargs)
-        searches.append((q.clone(), k, vals.clone(), idx.clone()))
+        searches.append((q.clone(), k, vals.clone(), idx.clone(), emb, kwargs))
         return vals, idx
 
     pipeline.fused_topk = recorded
@@ -1282,17 +1308,36 @@ def b1_searches():
         pipeline.fused_topk = search
 
 
-def check_server_searches(torch, retriever, searches, leaf_id: str) -> list[dict]:
-    """Each B1 search of the server phase against a plain search of its
-    query over the engine's indexes, stacked here from each index's own
-    matrix (in bf16, as the engine holds them), rows named by node id: each
-    returned score must be the plain score of its node, and the returned
-    nodes must hold MIN_RECALL of the plain top-k (B1 keeps one candidate
-    per bucket). The session index's nodes are counted among both; the
-    leaf question must return its leaf."""
+def check_searches_against_plain(torch, path: str, searches) -> list[dict]:
+    """Each captured B1 search against ``fused_topk_plain`` on the same
+    query batch, corpus and arguments (TOPK_TOL, ties as in the kernel
+    check). Returns one entry per query-batch shape: its count, max |err|
+    and index swaps."""
+    from tensortruth_tpu_torch.ops.topk import fused_topk_plain
+
+    shapes = {}
+    for i, (q, k, vals, idx, emb, kwargs) in enumerate(searches):
+        err, swaps = check_topk_agrees(f"{path}: B1 search {i} (B={q.shape[0]}, N={emb.shape[0]}, k={k})",
+                                       (vals, idx), fused_topk_plain(q, emb, k, **kwargs))
+        entry = shapes.setdefault((q.shape[0], emb.shape[0], k), {"searches": 0, "max_abs_err": 0.0, "swaps": 0})
+        entry.update(searches=entry["searches"] + 1, max_abs_err=max(entry["max_abs_err"], err),
+                     swaps=entry["swaps"] + swaps)
+    return [{"b": b, "b_pad": -(-b // 32) * 32, "n": n, "k": k, **e} for (b, n, k), e in sorted(shapes.items())]
+
+
+def check_server_searches(torch, retriever, searches, leaf_id: str, names=SERVER_SEARCHES,
+                          modules=SERVER_MODULES, path: str = "server") -> list[dict]:
+    """Each B1 search of a server phase (``names``, in order) against a
+    plain search of its query over the engine's indexes, stacked here from
+    each index's own matrix (in bf16, as the engine holds them), rows named
+    by node id: each returned score must be the plain score of its node, and
+    the returned nodes must hold MIN_RECALL of the plain top-k (B1 keeps one
+    candidate per bucket). The nodes of indexes outside ``modules`` (the
+    session's own) are counted among both; the leaf question must return
+    its leaf."""
     import numpy as np
 
-    check(len(searches) == len(SERVER_SEARCHES), f"server: {len(searches)} B1 searches, not {len(SERVER_SEARCHES)}")
+    check(len(searches) == len(names), f"{path}: {len(searches)} B1 searches, not {len(names)}")
     ids, session = [], []
     pieces = []
     for mod in retriever.modules:
@@ -1300,7 +1345,7 @@ def check_server_searches(torch, retriever, searches, leaf_id: str) -> list[dict
         matrix, row_map = index.matrix()
         pieces.append(matrix)
         ids += [index.node_of_row(int(r)).node_id for r in row_map]
-        session += [mod not in SERVER_MODULES] * len(row_map)
+        session += [mod not in modules] * len(row_map)
     rows = torch.from_numpy(np.concatenate(pieces)).to("cuda", torch.bfloat16).float()
     plain_row = {nid: i for i, nid in enumerate(ids)}
     session = np.array(session)
@@ -1310,7 +1355,7 @@ def check_server_searches(torch, retriever, searches, leaf_id: str) -> list[dict
         return retriever.indexes[mod].node_of_row(int(retriever._row_map[r])).node_id
 
     out = []
-    for name, (q, k, vals, idx) in zip(SERVER_SEARCHES, searches):
+    for name, (q, k, vals, idx, *_) in zip(names, searches):
         scores = (q.float() @ rows.T)[0]
         got = [engine_node(r) for r in idx[0].tolist()]
         at = torch.tensor([plain_row[n] for n in got], device="cuda")
@@ -1320,9 +1365,9 @@ def check_server_searches(torch, retriever, searches, leaf_id: str) -> list[dict
         out.append({"chat": name, "k": k, "max_abs_err": err, "recall": recall,
                     "session_rows": int(session[at.tolist()].sum()), "plain_session_rows": int(session[want].sum())})
         check(err <= TOPK_TOL and recall >= MIN_RECALL,
-              f"server: the {name}'s B1 search against the plain one: max |err| {err}, recall {recall}")
-    check(leaf_id in {engine_node(r) for r in searches[1][3][0].tolist()},
-          "server: the leaf question's search does not return its leaf")
+              f"{path}: the {name}'s B1 search against the plain one: max |err| {err}, recall {recall}")
+    check(leaf_id in {engine_node(r) for r in searches[names.index("leaf question")][3][0].tolist()},
+          f"{path}: the leaf question's search does not return its leaf")
     return out
 
 
@@ -1474,7 +1519,183 @@ def run_server_path(torch, work: Path) -> tuple[dict, dict, list[dict]]:
     return out, launches, check_attention_on_path(torch, "server", b3_inputs)
 
 
-# -- phase 7: the capacity path ------------------------------------------------
+# -- phases 7-9: serving under load, the orchestrator, B1's recall --------------
+
+# Concurrent WebSocket sessions over the main path's 262,144-row index (the
+# ``docs`` index the build path wrote + the synthetic module), served by the
+# port's app in this process through the port's serving driver
+# (``scripts/measure_serving_e2e.py``): 32 sessions (the batcher's default
+# query_batching_max_batch), 2 warm-up messages each, a 10 s window.
+SERVING = {"concurrency": 32, "measure_s": 10.0, "warmup": 2}
+SERVING_MODULES = ["docs", "synthetic"]
+# The orchestrator's expected leaf: the first of the longest ``docs`` leaves
+# whose own text, asked through the direct path, returns it among its
+# sources (the random-weight reranker decides which 5 of the candidates
+# stay, so not every leaf's own text keeps it).
+ORCHESTRATOR_TRIES = 16
+ORCHESTRATOR_SEARCHES = ["leaf question"]
+# B1's measured recall may fall this far below the prediction
+# 1 - k(k-1)/(2 c_out)/k: 0.01 is one item in 100 per query at k = 100, more
+# than five standard deviations of a mean over 32 queries at either k (the
+# lost items per query are about Poisson with mean k(k-1)/(2 c_out)).
+RECALL_MARGIN = 0.01
+
+
+async def orchestrate(base: str, modules: list[str], message: str) -> list[dict]:
+    """One WS message through a session whose model (``fake-tools``)
+    reports tool calling: the orchestrator's path."""
+    from aiohttp import ClientSession, ClientTimeout
+
+    from tensortruth_tpu_torch.scripts.measure_serving_e2e import TOOLS_MODEL, ask
+
+    async with ClientSession(timeout=ClientTimeout(total=600)) as http:
+        r = await http.post(f"{base}/api/sessions", json={"modules": modules, "params": {"model": TOOLS_MODEL}})
+        check(r.status == 200, f"orchestrator: POST /api/sessions: HTTP {r.status}")
+        sid = (await r.json())["id"]
+        async with http.ws_connect(f"{base.replace('http', 'ws', 1)}/ws/chat/{sid}") as ws:
+            return await ask(ws, message, timeout=600)
+
+
+def run_orchestrator_path(torch, served) -> tuple[dict, dict, list]:
+    """A session with the fake Ollama's tool-calling model, through the
+    port's real provider code (the registry probes ``/api/show``,
+    ``create_llm`` builds the Ollama provider; no LLM factory is seated):
+    one leaf asked verbatim must give a ``tool_phase`` naming ``rag_query``,
+    then ``sources`` holding the leaf and equal to the direct path's, then
+    ``done``. Its B1 search is held against a plain search. Returns (the
+    phase's numbers, B1 and B3 launches, B3's forwards)."""
+    import asyncio
+
+    from tensortruth_tpu_torch.ops.attention import blocked_attention
+    from tensortruth_tpu_torch.ops.topk import fused_topk
+
+    rag = served.services.rag_service
+    check(rag._llm_factory is None, "orchestrator: an LLM factory is seated; the provider would be skipped")
+    engine = rag.engine
+    docs = engine.retriever.indexes["docs"]
+    leaves = sorted((docs.node_of_row(r) for r in range(docs.n_alive)), key=lambda n: -len(n.text.split()))
+    leaf, direct = None, None
+    for node in leaves[:ORCHESTRATOR_TRIES]:
+        direct = [s.id for s in rag.retrieve(node.text.strip(), engine=engine).sources]
+        if node.node_id in direct:
+            leaf = node
+            break
+    check(leaf is not None, f"orchestrator: none of the {ORCHESTRATOR_TRIES} longest docs leaves retrieves itself")
+
+    torch.cuda.synchronize()
+    fused_topk.launches = 0
+    blocked_attention.launches = 0
+    t = time.perf_counter()
+    with b3_forwards() as b3_inputs, b1_searches() as searches:
+        frames = asyncio.run(orchestrate(served.base, SERVING_MODULES, leaf.text.strip()))
+        torch.cuda.synchronize()
+    done_s = time.perf_counter() - t
+    launches = {"fused_topk": fused_topk.launches, "blocked_attention": blocked_attention.launches}
+    kinds = [f["type"] for f in frames]
+    check("error" not in kinds, f"orchestrator: error frame {frames[-1]}")
+    phase = next((f for f in frames if f["type"] == "tool_phase"), None)
+    check(phase is not None and phase["tools"] == ["rag_query"]
+          and phase["calls"] == [{"tool": "rag_query", "params": {"query": leaf.text.strip()}}],
+          f"orchestrator: tool_phase {phase}")
+    check("sources" in kinds and kinds.index("tool_phase") < kinds.index("sources") < kinds.index("done")
+          and kinds[-1] == "done", f"orchestrator: frames {kinds}")
+    sources = [s["id"] for s in next(f for f in frames if f["type"] == "sources")["sources"]]
+    check(leaf.node_id in sources, f"orchestrator: sources {sources} do not hold the leaf {leaf.node_id}")
+    check(sources == direct, f"orchestrator: sources {sources}, the direct path's {direct}")
+    check(launches["fused_topk"] > 0, "kernel fused_topk was not launched on the orchestrator path")
+    check(len(searches) == launches["fused_topk"],
+          f"orchestrator: {len(searches)} B1 searches, {launches['fused_topk']} launches")
+    check(sum(cfg.num_layers for cfg, _ in b3_inputs) == launches["blocked_attention"],
+          f"orchestrator: {len(b3_inputs)} forwards at S >= 512 do not account for "
+          f"{launches['blocked_attention']} B3 launches")
+    out = {"leaf_id": leaf.node_id, "leaf_words": len(leaf.text.split()), "frames": kinds, "done_s": done_s,
+           "sources": sources, "launches": launches,
+           "searches": check_server_searches(torch, engine.retriever, searches, leaf.node_id,
+                                             names=ORCHESTRATOR_SEARCHES, modules=SERVING_MODULES,
+                                             path="orchestrator"),
+           "shapes": check_searches_against_plain(torch, "orchestrator", searches)}
+    log(f"orchestrator path: leaf {leaf.node_id} ({out['leaf_words']} words) asked verbatim through fake-tools: "
+        f"frames {kinds}, done at {done_s:.3f} s; sources {sources} (the direct path's); launches {launches}")
+    for s in out["searches"]:
+        log(f"  B1 search of the {s['chat']} against the plain one: max |err| {s['max_abs_err']:.3g}, "
+            f"recall {s['recall']:.2f} of {s['k']}")
+    return out, launches, list(b3_inputs)
+
+
+def run_serving_path(torch, work: Path) -> tuple[dict, dict, list[dict], dict, dict, list[dict]]:
+    """Serving under load, then the orchestrator on the same fake Ollama and
+    server. Every B1 search of the serving phase is held against its plain
+    version. Returns (serving numbers, serving launches, B3's check at the
+    serving shapes, orchestrator numbers, its launches, its B3 check)."""
+    import asyncio
+
+    from tensortruth_tpu_torch.ops.attention import blocked_attention
+    from tensortruth_tpu_torch.ops.topk import fused_topk
+    from tensortruth_tpu_torch.scripts import card_line, measure_serving_e2e as serving
+
+    data_dir = work / "serving"
+    data_dir.mkdir()
+    with serving.launch(data_dir, work / "indexes", "cuda", in_process=True, tiny=False) as served:
+        asyncio.run(serving.wait_health(served.base, timeout=600))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_topk.launches = 0
+        blocked_attention.launches = 0
+        with b3_forwards() as forwards, b1_searches() as searches:
+            out = asyncio.run(serving.drive(served.base, SERVING_MODULES, **SERVING, tiny=False))
+            torch.cuda.synchronize()
+        launches = {"fused_topk": fused_topk.launches, "blocked_attention": blocked_attention.launches}
+        peak_bytes = torch.cuda.max_memory_allocated()
+        orchestrator, orch_launches, orch_forwards = run_orchestrator_path(torch, served)
+    batcher, compared = out["batcher"], out["batched_vs_sequential"]
+    check(len(searches) == launches["fused_topk"], f"serving: {len(searches)} B1 searches, {launches['fused_topk']} launches")
+    out.update(launches=launches, peak_bytes=peak_bytes, card=card_line(),
+               mean_batch=batcher["requests_served"] / max(1, batcher["batches_run"]),
+               searches=check_searches_against_plain(torch, "serving", searches))
+    del searches
+    log(f"serving path ({SERVING['concurrency']} WS sessions over {out['n_chunks']} rows, "
+        f"{SERVING['measure_s']} s window): {out['qps']:.2f} messages/s, p50 {out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} ms; {out['answered']} "
+        f"answered, {out['sourceless']} without sources; batcher {batcher} (mean batch {out['mean_batch']:.2f}); "
+        f"batched vs sequential over {compared['queries']} queries: max score diff {compared['max_score_diff']}, "
+        f"{compared['swaps']} swaps, disagree {compared['disagree']}; launches {launches}; "
+        f"peak {gib(out['peak_bytes'])}")
+    for e in out["searches"]:
+        log(f"  B1 searches at B={e['b']} (b_pad {e['b_pad']}) N={e['n']} k={e['k']} against fused_topk_plain: "
+            f"{e['searches']}, max |err| {e['max_abs_err']:.3g}, index swaps {e['swaps']}")
+    log("forwards at S >= 512 on the serving path, (B, S): "
+        + str(sorted(Counter(tuple(m.shape) for _, m in forwards).items())))
+    check(out["sourceless"] == 0, f"serving: {out['sourceless']} of {out['answered']} answers without sources")
+    check(batcher["batches_run"] < batcher["requests_served"], f"serving: the batcher did not coalesce: {batcher}")
+    check(compared["queries"] == serving.CHECK_QUERIES and not compared["disagree"],
+          f"serving: batched answers differ from sequential ones: {compared}")
+    check(launches["fused_topk"] > 0, "kernel fused_topk was not launched on the serving path")
+    check(sum(cfg.num_layers for cfg, _ in forwards) == launches["blocked_attention"],
+          f"serving: {len(forwards)} forwards at S >= 512 do not account for "
+          f"{launches['blocked_attention']} B3 launches")
+    return (out, launches, check_attention_on_path(torch, "serving", forwards),
+            orchestrator, orch_launches, check_attention_on_path(torch, "orchestrator", orch_forwards))
+
+
+def run_recall_path() -> tuple[dict, int]:
+    """``scripts/measure_recall.py``'s ``run()``: B1 against the exact top-k
+    over 1,000,000 x 1024 bf16 rows, k = 10 and 100. Returns (its numbers,
+    B1's launches)."""
+    from tensortruth_tpu_torch.ops.topk import fused_topk
+    from tensortruth_tpu_torch.scripts import measure_recall
+
+    fused_topk.launches = 0
+    out = measure_recall.run(device="cuda")
+    launches = fused_topk.launches
+    check(launches == len(measure_recall.KS), f"recall: {launches} B1 launches, not {len(measure_recall.KS)}")
+    for k in measure_recall.KS:
+        got, want = out[f"recall@{k}"], out[f"predicted@{k}"]
+        check(got >= want - RECALL_MARGIN, f"recall@{k} {got} < predicted {want} - {RECALL_MARGIN}")
+    log(f"recall path: N={out['n']} D={out['d']} B={out['b']} c_out={out['c_out']}: " + ", ".join(
+        f"recall@{k} {out[f'recall@{k}']:.5f} (predicted {out[f'predicted@{k}']:.5f})" for k in measure_recall.KS))
+    return out, launches
+
+
+# -- phase 10: the capacity path ------------------------------------------------
 
 CAPACITY_QUESTIONS = [
     "How does the IVF tier pick the clusters it probes?",
@@ -1678,7 +1899,7 @@ def run_capacity_path(torch, work: Path) -> tuple[dict, dict]:
     return launches, reference
 
 
-# -- phase 8: the mesh path ---------------------------------------------------
+# -- phase 11: the mesh path --------------------------------------------------
 
 # Every slot of the mesh sits on the one card: the shards run one after
 # another, so no number of this phase is a multi-GPU figure.
@@ -1959,7 +2180,7 @@ def run_mesh_path(torch, work: Path, ref: dict) -> tuple[dict, dict]:
     return {"mesh": str(mesh), "flat": flat, "ivf": ivf, "config": config, "global": workers}, launches
 
 
-# -- phase 9: the multislice path ---------------------------------------------
+# -- phase 12: the multislice path --------------------------------------------
 
 # The capacity path's IVF indexes (1024 clusters x 3072 rows x 1024, bf16 and
 # int8) split into cluster groups routed by the host; groups 2 and 3 are
@@ -2272,7 +2493,7 @@ def run_multislice_path(torch, work: Path, ref: dict) -> tuple[dict, dict]:
     return out, launches
 
 
-# -- phase 10: the probe path --------------------------------------------------
+# -- phase 13: the probe path -------------------------------------------------
 
 
 def run_probe_path() -> dict:
@@ -2308,6 +2529,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from tensortruth_tpu_torch import _build  # fails here outside a checkout
+    from tensortruth_tpu_torch.scripts import card_line
 
     work = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
     for var, sub in (
@@ -2320,6 +2542,7 @@ def main() -> None:
         os.environ[var] = str(work / sub)
     try:
         card = card_line()
+        check(card is not None, "nvidia-smi is missing")
         log(f"card: {card}")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
@@ -2347,6 +2570,13 @@ def main() -> None:
         launches, main_shapes = run_main_path(torch, work)
         log(f"main path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        (serving, serving_launches, serving_shapes,
+         orchestrator, orch_launches, orch_shapes) = run_serving_path(torch, work)
+        log(f"serving and orchestrator paths: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        recall, recall_launches = run_recall_path()
+        log(f"recall path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         capacity_launches, reference = run_capacity_path(torch, work)
         launches |= capacity_launches
         log(f"capacity path: {time.perf_counter() - t0:.1f} s")
@@ -2363,18 +2593,28 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # B3 runs on three paths: the build's long leaves, and the server's and
-    # the main path's long request; each was also held against its plain
-    # version at that path's shapes and masks. B1 serves the server path and
-    # the main path.
+    # B3 runs on the build's long leaves and on every serving path's long
+    # pairs; each was also held against its plain version at that path's
+    # shapes and masks. B1 serves every serving path and the recall driver.
     b3 = measured["blocked_attention"]
-    b3["launches_by_path"] = {"build": build_launches, "server": server_launches["blocked_attention"],
-                              "main": launches["blocked_attention"]}
-    b3["by_path"] = {"build": build_shapes, "server": server_shapes, "main": main_shapes}
-    b3["max_abs_err"] = max([b3["max_abs_err"]] + [e["max_abs_err"] for e in build_shapes + server_shapes + main_shapes])
-    launches["blocked_attention"] += build_launches + server_launches["blocked_attention"]
-    measured["fused_topk"]["launches_by_path"] = {"server": server_launches["fused_topk"], "main": launches["fused_topk"]}
-    launches["fused_topk"] += server_launches["fused_topk"]
+    b3_paths = {"build": (build_launches, build_shapes),
+                "server": (server_launches["blocked_attention"], server_shapes),
+                "main": (launches["blocked_attention"], main_shapes),
+                "serving": (serving_launches["blocked_attention"], serving_shapes),
+                "orchestrator": (orch_launches["blocked_attention"], orch_shapes)}
+    b3["launches_by_path"] = {path: n for path, (n, _) in b3_paths.items()}
+    b3["by_path"] = {path: shapes for path, (_, shapes) in b3_paths.items()}
+    b3["max_abs_err"] = max([b3["max_abs_err"]] + [e["max_abs_err"] for _, shapes in b3_paths.values() for e in shapes])
+    launches["blocked_attention"] = sum(b3["launches_by_path"].values())
+    measured["fused_topk"]["launches_by_path"] = {
+        "server": server_launches["fused_topk"], "main": launches["fused_topk"],
+        "serving": serving_launches["fused_topk"], "orchestrator": orch_launches["fused_topk"], "recall": recall_launches}
+    launches["fused_topk"] = sum(measured["fused_topk"]["launches_by_path"].values())
+    # Every B1 search of the serving and orchestrator paths was held against
+    # fused_topk_plain at its query-batch shape.
+    b1 = measured["fused_topk"]
+    b1["by_path"] = {"serving": serving["searches"], "orchestrator": orchestrator["shapes"]}
+    b1["max_abs_err"] = max([b1["max_abs_err"]] + [e["max_abs_err"] for shapes in b1["by_path"].values() for e in shapes])
     # The mesh path runs B1, B2 and B4 once per shard, on the shapes its
     # shards give them (``mesh_shards``).
     shards = {"fused_topk": mesh["flat"]["a"]["shards"], "fused_topk_int8": mesh["flat"]["b"]["shards"],
@@ -2409,6 +2649,9 @@ def main() -> None:
         "upload_s", "upload_chunks", "engine_load_s", "rest_chat_s", "messages", "from_upload", "searches",
         "peak_bytes", "launches", "trace_b1_events")}}))
     print(json.dumps({"multislice": multislice}))
+    print(json.dumps({"serving": serving}))
+    print(json.dumps({"orchestrator": orchestrator}))
+    print(json.dumps({"recall": recall}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -141,6 +141,11 @@ class FunctionAgent(Agent):
                 try:
                     result = await tools[name].fn(**args)
                 except Exception as e:
+                    # A tool that declares it (retrieval, which runs the
+                    # device kernels) fails the agent rather than reaching
+                    # the LLM as text. Other tools' failures stay results.
+                    if tools[name].propagate_errors:
+                        raise
                     return name, args, f"ERROR: {e}"
                 return name, args, result
 

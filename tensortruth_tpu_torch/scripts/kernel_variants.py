@@ -36,6 +36,7 @@ from pathlib import Path
 import torch
 
 from tensortruth_tpu_torch import _build
+from tensortruth_tpu_torch.scripts import card_line
 
 VARIANTS = {  # name: (source, {text in the source: its replacement})
     "gemm": ("tc_matmul.cu", {}),
@@ -369,8 +370,7 @@ def main(argv: list[str]) -> int:
     if unknown:
         print(f"unknown variants: {sorted(unknown)}; known: {list(VARIANTS)}", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build, names)))
     for name, (_, report) in built.items():

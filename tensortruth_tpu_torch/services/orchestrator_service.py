@@ -191,6 +191,9 @@ class OrchestratorService:
                 "required": ["query"],
             },
             fn=rag_query,
+            # a failed retrieval (a device fault) must reach the client as
+            # an error, never as an answer without sources
+            propagate_errors=True,
         )
 
     def _system_prompt(

@@ -22,6 +22,9 @@ class ToolSpec:
     parameters: dict  # JSON schema
     fn: Callable[..., Awaitable[object]]
     source: str = "builtin"  # builtin | mcp | extension
+    # An exception from ``fn`` leaves the agent instead of becoming an
+    # "ERROR: ..." tool result.
+    propagate_errors: bool = False
 
     def to_dict(self) -> dict:
         return {

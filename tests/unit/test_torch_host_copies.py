@@ -54,11 +54,10 @@ COPIED = [
         "rerankers", "sessions", "startup", "tasks", "tool_confirmations", "tools")],
     *[f"services/{m}.py" for m in (
         "session_service", "project_service", "document_index", "document_service", "image_service",
-        "chat_service", "startup_service", "synthesis_service", "task_runner", "tool_service",
-        "tool_confirmation_service", "mcp_server_service", "metadata_store", "orchestrator_service",
-        "orchestrator_tools")],
+        "chat_service", "startup_service", "synthesis_service", "task_runner",
+        "tool_confirmation_service", "mcp_server_service", "metadata_store", "orchestrator_tools")],
     "app/file_utils.py", "app/title_generation.py", "core/llama_cpp.py",
-    "agents/__init__.py", "agents/base.py", "agents/function_agent.py", "agents/mcp_client.py", "agents/registry.py",
+    "agents/__init__.py", "agents/base.py", "agents/mcp_client.py", "agents/registry.py",
     "extensions/__init__.py", "extensions/loader.py", "extensions/schema.py", "extensions/yaml_command.py",
     "mcp_servers/__init__.py", "mcp_servers/web_tools_server.py",
     "web/fetch.py", "web/links.py", "web/pipeline.py", "web/search.py", "web/synthesis.py",

@@ -10,9 +10,13 @@
   no ``jax`` and no ``triton`` is in ``sys.modules``. The same holds after
   a document upload and a WS chat through the port's app on the CPU, and in
   a slice worker spawned on the CPU that has answered a search (its import
-  log, ``PYTHONPROFILEIMPORTTIME``, names no such module).
+  log, ``PYTHONPROFILEIMPORTTIME``, names no such module). The serving and
+  recall drivers' run in a fresh interpreter is held to the same in
+  ``test_torch_serving.py``.
 * No source file of the port and not ``chip_smoke.py`` imports the JAX
-  package or jax, lazily or not (an AST walk over every import).
+  package or jax, lazily or not (an AST walk over every import); the two
+  drivers and ``chip_smoke.py``'s serving, orchestrator and recall phases
+  import no triton either.
 * The CUDA-only wrappers (B1, B2, B3, B4, B5) raise on inputs their kernels
   do not take instead of falling back; these checks run on the CPU because
   they come before the device check.
@@ -189,8 +193,12 @@ def test_spawned_slice_worker_loads_no_jax(tmp_path):
 def _imported_roots(path: pathlib.Path) -> set[str]:
     """Top-level names of every absolute import in ``path``, wherever it
     stands (module level or inside a function)."""
+    return _imported_roots_of(ast.parse(path.read_text(encoding="utf-8")))
+
+
+def _imported_roots_of(tree: ast.AST) -> set[str]:
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -212,6 +220,24 @@ def test_chip_smoke_imports_only_the_port():
     roots = _imported_roots(PKG.parent / "chip_smoke.py")
     assert "tensortruth_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "tensortruth_tpu"}, roots
+
+
+# The serving, orchestrator and recall phases of chip_smoke.py, with the
+# drivers they call.
+SMOKE_PHASES = ["orchestrate", "run_orchestrator_path", "run_serving_path", "run_recall_path",
+                "check_searches_against_plain"]
+
+
+@pytest.mark.parametrize("target", ["scripts/measure_serving_e2e.py", "scripts/measure_recall.py", *SMOKE_PHASES])
+def test_serving_phases_and_their_drivers_import_no_jax_or_triton(target):
+    if target.endswith(".py"):
+        roots = _imported_roots(PKG / target)
+    else:
+        tree = ast.parse((PKG.parent / "chip_smoke.py").read_text(encoding="utf-8"))
+        (fn,) = [n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)) and n.name == target]
+        roots = _imported_roots_of(fn)
+        assert "tensortruth_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "tensortruth_tpu", "triton"}, roots
 
 
 def test_package_sources_avoid_forbidden_shortcuts():

@@ -60,6 +60,11 @@ ADAPTED = {
     "utils/profiling.py": {"<docstring>", "import os", "_active", "start_trace", "stop_trace", "device_trace"},
     # takes no exclusive lock when there is nothing to heal (ROADMAP C)
     "index/packed.py": {"is_packed"},
+    # a failed rag_query raises out of the agent instead of becoming an
+    # "ERROR: ..." tool result (ROADMAP C): the tool declares it
+    "agents/function_agent.py": {"FunctionAgent.run"},
+    "services/tool_service.py": {"ToolSpec.propagate_errors: bool = False"},
+    "services/orchestrator_service.py": {"OrchestratorService._rag_tool"},
 }
 
 
