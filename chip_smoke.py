@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port's index build, server, online query path, serving under load, mesh and multislice
-tiers once on one NVIDIA GPU.
+tiers and the reference's headline benchmark drivers once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -146,9 +146,22 @@ Phases, each of which raises (exit code 1, no result line) when it fails:
 13. probe path: the int8 tensor-core probe
    (``tensortruth_tpu_torch.scripts.probe_int8_mma.run()``) times B5's four
    variants at M=16384, K=1024, N=4096 and applies the reference's decision
-   rule; B5 must have been launched, bf16 and int8, while it ran.
+   rule; B5 must have been launched, bf16 and int8, while it ran;
+14. bench path: the reference's headline drivers through the port's
+   (``tensortruth_tpu_torch/scripts``) at full width: ``bench.py``'s stages
+   and double-buffered serving loop (32 queries of 128 tokens, B1 over
+   1,000,000 x 1024 bf16 rows at k = 100, 320 rerank pairs at the measured
+   length mix), two of its rounds profiled (the device's busy share, host
+   issue and wait time per round; no stream or device synchronise inside the
+   loop, so batch B's readback never waits for batch B+1's forward) beside
+   the sum of its stages; ``bench_configs.py`` configs 1, 2, 4 and 5 (config
+   5's 2,000,000-row index built once, through ``probe_ivf_build``'s
+   stages); ``probe_seq_buckets`` and ``measure_rerank_serving`` (blocking
+   and async scores bit-equal). Every B1 search of the phase is held against
+   ``fused_topk_plain`` and every B4 search against ``ivf_search(...,
+   plain=True)``: ids equal, scores within TOPK_TOL / PROBE_TOL.
 
-The last nine lines are the mesh phase's numbers (``{"mesh": ...}``:
+The last ten lines are the mesh phase's numbers (``{"mesh": ...}``:
 placement seconds and device bytes per tier, request times, the shapes each
 shard gave each kernel), the server phase's (``{"server": ...}``), the
 multislice phase's (``{"multislice": ...}``: per dtype the routing ms, the
@@ -158,7 +171,9 @@ overlaps and the max |err| against plain), the serving phase's
 (``{"serving": ...}``: messages/s, p50 and p95, the batcher's counters,
 the batched-vs-sequential comparison, launches), the orchestrator phase's
 (``{"orchestrator": ...}``), the recall phase's (``{"recall": ...}``),
-the card's name and power limit,
+the bench phase's (``{"bench": ...}``: the headline line as the port's
+``bench.py`` prints it, each config's line, the IVF build stages, the
+probes' results, the profiled loop round), the card's name and power limit,
 a JSON object describing each kernel, and the final ``{"ok": true,
 "device": ...}`` line.
 Nothing here imports JAX or the JAX package; the host code (index, chunker,
@@ -1286,26 +1301,35 @@ def trace_names_b1(path: str) -> int:
 
 
 @contextmanager
-def b1_searches():
+def b1_searches(*also):
     """(query, k, returned scores, returned rows, corpus, keyword arguments)
     of every B1 search while the block runs: ``pipeline.py``'s
     ``fused_topk``, through which the server's queries reach the corpus, is
-    wrapped."""
+    wrapped, and so is each (module, name) of ``also``, a function called
+    with ``fused_topk``'s arguments (``topk_search``'s ``exact`` flag is left
+    out of the record)."""
     from tensortruth_tpu_torch import pipeline
 
     searches = []
-    search = pipeline.fused_topk
+    targets = [(pipeline, "fused_topk"), *also]
+    originals = [getattr(module, name) for module, name in targets]
 
-    def recorded(q, emb, k, **kwargs):
-        vals, idx = search(q, emb, k, **kwargs)
-        searches.append((q.clone(), k, vals.clone(), idx.clone(), emb, kwargs))
-        return vals, idx
+    def recorder(search):
+        def recorded(q, emb, k, **kwargs):
+            vals, idx = search(q, emb, k, **kwargs)
+            kwargs.pop("exact", None)
+            searches.append((q.clone(), k, vals.clone(), idx.clone(), emb, kwargs))
+            return vals, idx
 
-    pipeline.fused_topk = recorded
+        return recorded
+
+    for (module, name), search in zip(targets, originals):
+        setattr(module, name, recorder(search))
     try:
         yield searches
     finally:
-        pipeline.fused_topk = search
+        for (module, name), search in zip(targets, originals):
+            setattr(module, name, search)
 
 
 def check_searches_against_plain(torch, path: str, searches) -> list[dict]:
@@ -1951,10 +1975,11 @@ def run_flat_mesh_tier(torch, svc, load, mesh, ref, dtype: str) -> dict:
     ``load_engine``, 4 ``retrieve()`` requests (DP embed -> B1 / B2 per shard
     -> DP rerank), then its sharded search of the 8 questions against the
     same sharding through the plain version and against the exact top-20."""
-    from tensortruth_tpu_torch.ops.topk import fused_topk, fused_topk_int8
+    from tensortruth_tpu_torch.ops.topk import fused_topk, fused_topk_int8, fused_topk_int8_plain, fused_topk_plain
     from tensortruth_tpu_torch.parallel.sharded_topk import ShardedCorpus, shard_corpus_streaming, sharded_topk
 
-    name, kernel = ("(a)", fused_topk) if dtype == "bfloat16" else ("(b)", fused_topk_int8)
+    name, kernel, plain = (("(a)", fused_topk, fused_topk_plain) if dtype == "bfloat16"
+                           else ("(b)", fused_topk_int8, fused_topk_int8_plain))
     params = {"reranker_top_n": 5} | ({"corpus_dtype": "int8"} if dtype == "int8" else {})
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -1995,16 +2020,19 @@ def run_flat_mesh_tier(torch, svc, load, mesh, ref, dtype: str) -> dict:
     # alone beside its bound: what the search costs beyond its launches.
     queued = queued_ms(torch, lambda: sharded_topk(q, corpus, **kw))
     rows, scales = corpus.parts[0][mesh.lead], corpus.scales[0][mesh.lead] if dtype == "int8" else None
-    shard_ms = cuda_ms(torch, lambda: kernel(q, rows, scales, 20) if scales is not None else kernel(q, rows, 20))
+    shard_ms, shard_plain_ms = in_turns(
+        torch, *((lambda f=f: f(q, rows, scales, 20) if scales is not None else f(q, rows, 20)) for f in (kernel, plain)))
     shard_bound = bound(nbytes(q, rows) + (nbytes(scales) if scales is not None else 0), 2 * q.numel() * rows.shape[0],
                         "int8" if dtype == "int8" else "bf16")
     log(f"{name} sharded search of 8 queries: {ms:.4f} ms device ({queued:.4f} ms queued behind a sleep; "
-        f"{MESH['n_shards']} launches, one after another; one shard's launch {shard_ms:.4f} ms, bound "
-        f"{shard_bound['bound_ms']:.4f} ms), plain {plain_ms:.4f} ms; max |err| {err:.2e} ({swaps} index swaps "
+        f"{MESH['n_shards']} launches, one after another; one shard's launch {shard_ms:.4f} ms, its plain version "
+        f"{shard_plain_ms:.4f} ms, bound {shard_bound['bound_ms']:.4f} ms), plain {plain_ms:.4f} ms; max |err| "
+        f"{err:.2e} ({swaps} index swaps "
         f"within tolerance); recall {rec:.4f} against the exact top-20")
     out = {"load_s": load_s, "placement_s": r.placement_seconds, "device_bytes": corpus.nbytes(),
            "request_ms": request_ms, "launches": launches, "search_ms": ms, "search_queued_ms": queued,
-           "plain_ms": plain_ms, "shard_ms": shard_ms, "shard_bound": shard_bound, "max_abs_err": err,
+           "plain_ms": plain_ms, "shard_ms": shard_ms, "shard_plain_ms": shard_plain_ms, "shard_bound": shard_bound,
+           "max_abs_err": err,
            "recall": rec, "shards": flat_shard_shapes(corpus, CAPACITY_ROWS, 1), "ids": got[1].cpu(),
            "scores": got[0].cpu()}
     if dtype == "bfloat16":
@@ -2518,6 +2546,248 @@ def run_probe_path() -> dict:
     return launches
 
 
+# -- phase 14: the bench path ---------------------------------------------------
+
+
+@contextmanager
+def ivf_searches(module):
+    """(index, queries, k, nprobe, returned scores, returned rows) of every
+    ``ivf_search`` that ``module`` calls while the block runs."""
+    searches = []
+    search = module.ivf_search
+
+    def recorded(index, q, k, nprobe=8, plain=False):
+        vals, rows = search(index, q, k, nprobe=nprobe, plain=plain)
+        searches.append((index, q, k, nprobe, vals, rows))
+        return vals, rows
+
+    module.ivf_search = recorded
+    try:
+        yield searches
+    finally:
+        module.ivf_search = search
+
+
+def check_bench_searches(torch, b1, b4) -> tuple[list[dict], list[dict]]:
+    """Every B1 search of the bench path against ``fused_topk_plain`` and
+    every B4 search against ``ivf_search(..., plain=True)``: ids equal,
+    scores within TOPK_TOL / PROBE_TOL. Returns one entry per shape: its
+    searches and max |err|, the bound of one search of it (the valid rows
+    read once; for B4 the rows of the clusters its queries probe) and the
+    kernel's and its plain version's times on that search's inputs, in
+    turns."""
+    import numpy as np
+
+    from tensortruth_tpu_torch.ops.ivf import host_tensor, ivf_search, probe_scores, probe_scores_plain
+    from tensortruth_tpu_torch.ops.matmul import mm_f32
+    from tensortruth_tpu_torch.ops.topk import _sorted_topk, fused_topk, fused_topk_plain
+
+    b1_shapes = check_searches_against_plain(torch, "bench", b1)
+    check(all(e["swaps"] == 0 for e in b1_shapes), f"bench: B1 ids differ from the plain version's: {b1_shapes}")
+    first = {}
+    for q, k, vals, idx, emb, kwargs in b1:
+        first.setdefault((q.shape[0], emb.shape[0], k), (q, k, vals, idx, emb, kwargs))
+    for e in b1_shapes:
+        q, k, vals, idx, emb, kwargs = first[(e["b"], e["n"], e["k"])]
+        rows, d = kwargs.get("n_actual") or emb.shape[0], emb.shape[1]
+        ms, plain_ms = in_turns(torch, lambda: fused_topk(q, emb, k, **kwargs),
+                                lambda: fused_topk_plain(q, emb, k, **kwargs))
+        e.update(n_actual=rows, ms=ms, plain_ms=plain_ms,
+                 **bound(nbytes(q, vals, idx) + rows * d * emb.element_size(), 2 * q.shape[0] * rows * d))
+
+    b4_shapes = {}
+    for i, (index, q, k, nprobe, vals, rows) in enumerate(b4):
+        pvals, prows = ivf_search(index, q, k, nprobe=nprobe, plain=True)
+        fin = np.isfinite(pvals)
+        check(np.array_equal(rows, prows) and np.array_equal(np.isfinite(vals), fin),
+              f"bench: B4 search {i} (B={q.shape[0]}, nprobe={nprobe}) ids differ from the plain probe's")
+        err = float(np.abs(vals[fin] - pvals[fin]).max()) if fin.any() else 0.0
+        check(err <= PROBE_TOL, f"bench: B4 search {i}: max |err| {err} > {PROBE_TOL}")
+        e = b4_shapes.setdefault((q.shape[0], nprobe), {"b": q.shape[0], "nprobe": nprobe, "k": k, "searches": 0,
+                                                        "max_abs_err": 0.0, "inputs": (index, q)})
+        e.update(searches=e["searches"] + 1, max_abs_err=max(e["max_abs_err"], err))
+    for e in b4_shapes.values():
+        index, q = e.pop("inputs")
+        c, rpc, d = index.blocks.shape
+        qt = host_tensor(q).to(index.blocks.device, torch.bfloat16)
+        probe = _sorted_topk(mm_f32(qt, index.centroids.to(torch.bfloat16).t()), e["nprobe"])[1].to(torch.int32)
+        probed = torch.unique(probe.long())
+        valid_rows = int(index.valid[probed].sum())
+        n_bytes = valid_rows * d * index.blocks.element_size() + probed.numel() * rpc * 4
+        ms, plain_ms = in_turns(torch, lambda: probe_scores(probe, qt, index.blocks, index.valid),
+                                lambda: probe_scores_plain(probe, qt, index.blocks, index.valid))
+        e.update(clusters=c, rpc=rpc, d=d, probed_clusters=probed.numel(), valid_rows=valid_rows, ms=ms, plain_ms=plain_ms,
+                 **bound(n_bytes + nbytes(probe, qt) + probe.numel() * rpc * 4,
+                         2 * d * int(index.valid[probe.long()].sum())))
+    return b1_shapes, list(b4_shapes.values())
+
+
+def profile_serve_round(torch, state, rounds: int = 2) -> dict:
+    """``rounds`` rounds of the bench's serving loop under torch.profiler:
+    the device's kernel time against the loop's wall time, the host's time
+    per round issuing work (the ``bench.step`` and ``bench.rerank`` spans)
+    and waiting (``bench.readback``, ``bench.finish``), the runtime's
+    synchronise calls inside those spans, and the rounds in which batch
+    B+1's step was still pending on the card when batch B's ids reached the
+    host. No stream or device synchronise may fall inside the loop: the
+    readback waits on batch B's event alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = ("bench.step", "bench.readback", "bench.rerank", "bench.finish")
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        stats = state.serve(rounds=rounds)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    # The spans also appear on the device's timeline (the range of the
+    # kernels each launched): they count neither as kernels nor as host time.
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key not in spans]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    events = prof.events()
+    windows = {name: [(e.time_range.start, e.time_range.end) for e in events
+                      if e.name == name and e.device_type == DeviceType.CPU] for name in spans}
+    check(all(len(w) == rounds for w in windows.values()), f"profiled round: spans {windows}")
+
+    def inside(e, name):
+        return any(lo <= e.time_range.start <= hi for lo, hi in windows[name])
+
+    syncs = {name: Counter(e.name for e in events if e.name.endswith("Synchronize") and inside(e, name))
+             for name in spans}
+    host_ms = {name: sum(hi - lo for lo, hi in w) / 1e3 / rounds for name, w in windows.items()}
+    out = {
+        "rounds": rounds, "wall_ms": wall, "device_busy_ms": busy, "device_busy_share": busy / wall,
+        "kernel_launches": sum(e.count for e in kernels),
+        "device_ms_per_round": busy / rounds, "host_ms_per_round": host_ms,
+        "host_issue_ms_per_round": host_ms["bench.step"] + host_ms["bench.rerank"],
+        "syncs_in_spans": {k: dict(v) for k, v in syncs.items()},
+        "pending_at_readback": stats["pending_at_readback"],
+        "readback_wait_ms_per_round": stats["readback_wait_s"] * 1e3 / rounds,
+        "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count}
+                        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]],
+    }
+    log(f"profiled serving loop ({rounds} rounds): wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}%) in {out['kernel_launches']} kernel launches; host per round: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in host_ms.items())
+        + f"; synchronise calls in the spans {out['syncs_in_spans']}; batch B+1 pending at the readback of B "
+        f"in {stats['pending_at_readback']} of {rounds} rounds, readback wait {out['readback_wait_ms_per_round']:.3f} ms")
+    for k in out["top_kernels"]:
+        log(f"  {k['ms']:8.2f} ms  x{k['count']:<5d} {k['name']}")
+    blocking = {k: n for v in syncs.values() for k, n in v.items() if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize")}
+    check(not blocking, f"profiled round: {blocking} inside the serving loop")
+    return out
+
+
+def run_bench_path(torch) -> tuple[dict, dict, tuple[list, list]]:
+    """The reference's headline drivers at full width through the port:
+    ``bench.py`` (its stages, the serving loop, one loop round profiled and
+    its stages' sum), ``bench_configs.py`` configs 1, 2, 4 and 5 (config 5's
+    index built once, through ``probe_ivf_build.run``'s stages),
+    ``probe_seq_buckets`` and ``measure_rerank_serving``. Every B1 and B4
+    search is held against its plain version. Returns (the phase's numbers,
+    B1 and B4 launches, their shapes)."""
+    from tensortruth_tpu_torch.ops.ivf import probe_scores
+    from tensortruth_tpu_torch.ops.topk import fused_topk
+    from tensortruth_tpu_torch.retrieval import engine as engine_mod
+    from tensortruth_tpu_torch.scripts import (
+        bench,
+        bench_configs,
+        card_line,
+        measure_rerank_serving,
+        probe_ivf_build,
+        probe_seq_buckets,
+        time_calls,
+    )
+
+    seconds = {}
+    drawn = {}
+
+    def corpus5():
+        drawn["rng"], emb = bench_configs.corpus5()
+        return emb
+
+    torch.cuda.synchronize()
+    fused_topk.launches = probe_scores.launches = 0
+    with (b1_searches((bench, "fused_topk"), (bench_configs, "fused_topk"), (engine_mod, "topk_search")) as b1,
+          ivf_searches(bench_configs) as b4):
+        t0 = time.perf_counter()
+        state = bench.setup("cuda")
+        raw = bench.measure(state)
+        headline = bench.headline(raw)
+        pairs = state.build_pairs(state.issue().wait()[:, : bench.RERANK_TOP])
+        with torch.inference_mode():
+            rerank_mix_s = time_calls(lambda: state.reranker.score_pairs(pairs), state.device)[0]
+        profiled = profile_serve_round(torch, state)
+        seconds["bench"] = time.perf_counter() - t0
+        del state
+        lines = []
+        for c in ("1", "2", "4"):
+            t0 = time.perf_counter()
+            lines += bench_configs.CONFIGS[c]("cuda")[0]
+            seconds[f"config{c}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ivf_build = probe_ivf_build.run("cuda", make_corpus=corpus5)
+        index = ivf_build.pop("index")
+        lines += bench_configs.config5("cuda", prepared=(drawn.pop("rng"), index,
+                                                         ivf_build["stages_s"]["full_build"]))[0]
+        seconds["config5_with_ivf_build_probe"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    launches = {"fused_topk": fused_topk.launches, "ivf_probe": probe_scores.launches}
+    del index
+    t0 = time.perf_counter()
+    seq_buckets = probe_seq_buckets.run("cuda")
+    rerank_serving = measure_rerank_serving.run("cuda")
+    seconds["probes"] = time.perf_counter() - t0
+    check(len(b1) == launches["fused_topk"] > 0, f"bench: {len(b1)} B1 searches, {launches['fused_topk']} launches")
+    check(len(b4) == launches["ivf_probe"] > 0, f"bench: {len(b4)} B4 searches, {launches['ivf_probe']} launches")
+    t0 = time.perf_counter()
+    shapes = check_bench_searches(torch, b1, b4)
+    seconds["checks"] = time.perf_counter() - t0
+    del b1, b4
+    torch.cuda.empty_cache()
+
+    detail = headline["detail"]
+    stage_sum_ms = raw["embed_topk_fused_s"] * 1e3 + rerank_mix_s * 1e3
+    check(headline["value"] > 0 and all(v > 0 for k, v in detail.items() if k.endswith("_ms")),
+          f"bench: headline {headline}")
+    check(len(lines) == 5 and all(e["ms_per_batch"] > 0 for e in lines), f"bench: config lines {lines}")
+    check(tuple(ivf_build["stages_s"]) == probe_ivf_build.STAGES, f"bench: IVF build stages {ivf_build['stages_s']}")
+    check(rerank_serving["bit_equal"], "bench: blocking and async rerank scores differ")
+    check(all(f["ms"] > 0 for f in seq_buckets["forward"]), f"bench: seq-bucket forwards {seq_buckets['forward']}")
+    out = {
+        "headline": headline, "serve": raw["serve"], "rerank_mix_ms": rerank_mix_s * 1e3,
+        "serve_ms_per_batch": raw["serve_s_per_batch"] * 1e3, "stage_sum_ms": stage_sum_ms,
+        "profiled_round": profiled, "configs": lines, "peak_host_rss_bytes": bench_configs.peak_host_rss(),
+        "ivf_build": ivf_build, "seq_buckets": seq_buckets, "rerank_serving": rerank_serving,
+        "launches": launches, "seconds": seconds, "card": card_line(),
+    }
+    log(f"bench path: {headline['value']:.2f} QPS ({json.dumps(detail)}); serving loop "
+        f"{out['serve_ms_per_batch']:.2f} ms per batch against the sum of its stages {stage_sum_ms:.2f} ms "
+        f"(fused step {raw['embed_topk_fused_s'] * 1e3:.2f} + rerank of one batch's pairs {rerank_mix_s * 1e3:.2f})")
+    for entry in lines:
+        log(f"  {json.dumps(entry)}")
+    log(f"  IVF build stages (s): {json.dumps({k: round(v, 2) for k, v in ivf_build['stages_s'].items()})}; "
+        f"build_ivf's own: {json.dumps({k: round(v, 2) for k, v in ivf_build['build_seconds'].items()})}; "
+        f"peak host RSS {gib(out['peak_host_rss_bytes'])}")
+    log("  seq buckets, forward at B=64 (S: ms, us/token-row): " + ", ".join(
+        f"{f['S']}: {f['ms']:.2f}, {f['us_per_token_row']:.3f}" for f in seq_buckets["forward"])
+        + "; score_pairs " + ", ".join(f"{name} {b['ms']:.1f} ms ({b['padded_token_rows']} padded token-rows)"
+                                       for name, b in seq_buckets["buckets"].items()))
+    log(f"  rerank serving: async {rerank_serving['async_ms']:.1f} ms, blocking {rerank_serving['blocking_ms']:.1f} ms "
+        f"({rerank_serving['speedup']:.2f}x), bit-equal {rerank_serving['bit_equal']}")
+    for e in shapes[0]:
+        log(f"  B1 searches at B={e['b']} N={e['n_actual']} k={e['k']}: {e['searches']} against fused_topk_plain, "
+            f"max |err| {e['max_abs_err']:.3g}; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+    for e in shapes[1]:
+        log(f"  B4 searches at B={e['b']} nprobe={e['nprobe']} over {e['clusters']} x {e['rpc']}: {e['searches']} "
+            f"against the plain probe, max |err| {e['max_abs_err']:.3g}; kernel {e['ms']:.4f} ms, "
+            f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+    log(f"  bench path seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    return out, launches, shapes
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2590,6 +2860,9 @@ def main() -> None:
         t0 = time.perf_counter()
         launches |= run_probe_path()
         log(f"probe path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bench, bench_launches, (b1_bench, b4_bench) = run_bench_path(torch)
+        log(f"bench path: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2608,12 +2881,13 @@ def main() -> None:
     launches["blocked_attention"] = sum(b3["launches_by_path"].values())
     measured["fused_topk"]["launches_by_path"] = {
         "server": server_launches["fused_topk"], "main": launches["fused_topk"],
-        "serving": serving_launches["fused_topk"], "orchestrator": orch_launches["fused_topk"], "recall": recall_launches}
+        "serving": serving_launches["fused_topk"], "orchestrator": orch_launches["fused_topk"], "recall": recall_launches,
+        "bench": bench_launches["fused_topk"]}
     launches["fused_topk"] = sum(measured["fused_topk"]["launches_by_path"].values())
-    # Every B1 search of the serving and orchestrator paths was held against
-    # fused_topk_plain at its query-batch shape.
+    # Every B1 search of the serving, orchestrator and bench paths was held
+    # against fused_topk_plain at its query-batch shape.
     b1 = measured["fused_topk"]
-    b1["by_path"] = {"serving": serving["searches"], "orchestrator": orchestrator["shapes"]}
+    b1["by_path"] = {"serving": serving["searches"], "orchestrator": orchestrator["shapes"], "bench": b1_bench}
     b1["max_abs_err"] = max([b1["max_abs_err"]] + [e["max_abs_err"] for shapes in b1["by_path"].values() for e in shapes])
     # The mesh path runs B1, B2 and B4 once per shard, on the shapes its
     # shards give them (``mesh_shards``).
@@ -2639,6 +2913,13 @@ def main() -> None:
         if name in ms_err:
             measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], ms_err[name])
         launches[name] += n
+    # The bench path's config 5 runs B4 over bf16 blocks at two query
+    # shapes, each search held against the plain probe.
+    b4 = measured["ivf_probe"]
+    b4["launches_by_path"]["bench"] = bench_launches["ivf_probe"]
+    b4["by_path"] = {"bench": b4_bench}
+    b4["max_abs_err"] = max([b4["max_abs_err"]] + [e["max_abs_err"] for e in b4_bench])
+    launches["ivf_probe"] += bench_launches["ivf_probe"]
     kernels = [
         {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}
         for name in KERNELS
@@ -2652,6 +2933,7 @@ def main() -> None:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"orchestrator": orchestrator}))
     print(json.dumps({"recall": recall}))
+    print(json.dumps({"bench": bench}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -222,13 +222,16 @@ def test_chip_smoke_imports_only_the_port():
     assert not roots & {"jax", "jaxlib", "tensortruth_tpu"}, roots
 
 
-# The serving, orchestrator and recall phases of chip_smoke.py, with the
-# drivers they call.
+# The serving, orchestrator, recall and bench phases of chip_smoke.py, with
+# the drivers they call.
 SMOKE_PHASES = ["orchestrate", "run_orchestrator_path", "run_serving_path", "run_recall_path",
-                "check_searches_against_plain"]
+                "check_searches_against_plain", "run_bench_path", "check_bench_searches"]
+DRIVERS = ["scripts/measure_serving_e2e.py", "scripts/measure_recall.py", "scripts/bench.py",
+           "scripts/bench_configs.py", "scripts/probe_ivf_build.py", "scripts/probe_seq_buckets.py",
+           "scripts/measure_rerank_serving.py"]
 
 
-@pytest.mark.parametrize("target", ["scripts/measure_serving_e2e.py", "scripts/measure_recall.py", *SMOKE_PHASES])
+@pytest.mark.parametrize("target", [*DRIVERS, *SMOKE_PHASES])
 def test_serving_phases_and_their_drivers_import_no_jax_or_triton(target):
     if target.endswith(".py"):
         roots = _imported_roots(PKG / target)
