@@ -1,0 +1,9 @@
+"""query_step_ms: device time per batcher dispatch of the kernels launched
+inside the benchmark's ``bench.query_step`` spans (``QueryPipeline.
+retrieve_batch``; on the IVF tier the query encode and ``MultiIndexEngine.
+retrieve_batch``). Device trace."""
+from benchmark_torch.harness import readers
+
+
+def read(ctx):
+    return readers.per_batch_ms(ctx, "bench.query_step")
