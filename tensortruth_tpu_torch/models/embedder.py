@@ -27,6 +27,7 @@ import torch
 
 from tensortruth_tpu_torch.models.xlmr import XLMRConfig, XLMRModel, cls_embed, use_approx_gelu
 from tensortruth_tpu_torch.parallel.mesh import on
+from tensortruth_tpu_torch.utils import profiling
 
 
 def bucket(value: int, buckets: Sequence[int]) -> int:
@@ -170,6 +171,8 @@ class Embedder:
         max_batch = min(batch_size or self.batch_buckets[-1], self.batch_buckets[-1])
         slab = max(8 * max_batch, 2048)
         out = np.empty((len(texts), self.cfg.hidden_size), dtype=np.float32)
+        # A query encode counts its tokens into the span it runs in (the query step's).
+        span = profiling.current_span() if is_query else None
         prev = None  # (global row selection, wait for its host embeddings) of the last slab
         with torch.inference_mode():
             for slab_start in range(0, len(texts), slab):
@@ -184,6 +187,8 @@ class Embedder:
                     bsz = bucket(len(sel), self.batch_buckets)
                     bsz = -(-bsz // self._batch_multiple) * self._batch_multiple  # DP
                     ids_p, mask_p = pad_batch(ids, mask, sel, bsz, seq, self.tokenizer.pad_id)
+                    if span is not None:
+                        span.count(tokens=int(lengths[sel].sum()), slots=bsz * seq)
                     embs.append(self._fwd(ids_p, mask_p)[: len(sel)])
                     sels.append(slab_start + sel)
                 # Drain one slab behind the launch front: the current slab is

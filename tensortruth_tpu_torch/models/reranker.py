@@ -31,6 +31,7 @@ import torch
 
 from tensortruth_tpu_torch.models.embedder import bucket, make_dp_forward, pad_batch, to_host_async
 from tensortruth_tpu_torch.models.xlmr import XLMRConfig, XLMRModel, rerank_logits
+from tensortruth_tpu_torch.utils import profiling
 
 
 class Reranker:
@@ -132,11 +133,14 @@ class Reranker:
             return lambda: np.zeros((0,), dtype=np.float32)
         lengths = mask.sum(axis=1)
         sels, probs = [], []
-        with torch.inference_mode():
+        # tokens: the pairs' own; slots: the padded rows the forwards take
+        with profiling.span("rerank.launch", pairs=n_pairs) as span, torch.inference_mode():
             for sel in self._groups(lengths):
                 seq = bucket(int(lengths[sel].max()), self.seq_buckets)
                 bsz = bucket(len(sel), self.batch_buckets)
                 bsz = -(-bsz // self._batch_multiple) * self._batch_multiple  # DP
+                if span:
+                    span.count(forwards=1, tokens=int(lengths[sel].sum()), slots=bsz * seq)
                 batch = pad_batch(ids, mask, sel, bsz, seq, self.tokenizer.pad_id)
                 if self._needs_type_ids:
                     # type 1 strictly after the first [SEP], 0 elsewhere incl. padding
@@ -150,8 +154,9 @@ class Reranker:
         order = np.concatenate(sels)
 
         def finish() -> np.ndarray:
-            out = np.empty((n_pairs,), dtype=np.float32)
-            out[order] = wait()
+            with profiling.span("rerank.finish", pairs=n_pairs):
+                out = np.empty((n_pairs,), dtype=np.float32)
+                out[order] = wait()
             return out
 
         return finish

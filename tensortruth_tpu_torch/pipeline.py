@@ -15,6 +15,7 @@ import torch
 from tensortruth_tpu_torch.models.embedder import bucket, pad_batch
 from tensortruth_tpu_torch.models.xlmr import XLMRModel, cls_embed
 from tensortruth_tpu_torch.ops.topk import EXACT_MAX_ROWS, pad_topk, exact_topk, fused_topk
+from tensortruth_tpu_torch.utils import profiling
 
 
 def embed_topk(
@@ -36,10 +37,11 @@ def embed_topk(
     then masked to -inf / -1 as in the reference."""
     q = cls_embed(model, ids, mask).to(emb.dtype)
     n = emb.shape[0]
-    if use_fused and n_actual > EXACT_MAX_ROWS:
-        vals, idx = fused_topk(q, emb, k, m=m, tile_n=tile_n, n_actual=n_actual)
-    else:
-        vals, idx = pad_topk(*exact_topk(q, emb, min(k, n)), k)
+    with profiling.span("search", b=q.shape[0], n=n_actual, k=k):
+        if use_fused and n_actual > EXACT_MAX_ROWS:
+            vals, idx = fused_topk(q, emb, k, m=m, tile_n=tile_n, n_actual=n_actual)
+        else:
+            vals, idx = pad_topk(*exact_topk(q, emb, min(k, n)), k)
     valid = (idx >= 0) & (idx < n_actual)
     return vals.masked_fill(~valid, float("-inf")), idx.masked_fill(~valid, -1)
 
@@ -69,18 +71,21 @@ class QueryPipeline:
         eng, e = self.engine, self.embedder
         if not texts or eng._stacked is None:
             return [[] for _ in texts]
-        ids, mask = e.tokenizer.encode_batch(list(texts), e.max_length)
-        seq = bucket(int(mask.sum(axis=1).max()), e.seq_buckets)
-        bsz = bucket(len(texts), e.batch_buckets)
-        ids_p, mask_p = pad_batch(ids, mask, np.arange(len(texts)), bsz, seq, e.tokenizer.pad_id)
-        k = min(eng.similarity_top_k * max(1, len(eng.modules)), eng._n_actual)
-        with torch.inference_mode():
-            vals, idx = embed_topk(
-                e.model, *e.to_device(ids_p, mask_p), eng._stacked,
-                k=k, n_actual=eng._n_actual, use_fused=eng.use_fused,
-            )
-            vals, idx = vals[: len(texts)].cpu().numpy(), idx[: len(texts)].cpu().numpy()
-        return [eng._postprocess(vals[i], idx[i]) for i in range(len(texts))]
+        with profiling.span("query_step", queries=len(texts)) as span:
+            ids, mask = e.tokenizer.encode_batch(list(texts), e.max_length)
+            seq = bucket(int(mask.sum(axis=1).max()), e.seq_buckets)
+            bsz = bucket(len(texts), e.batch_buckets)
+            if span:
+                span.count(tokens=int(mask.sum()), slots=bsz * seq)
+            ids_p, mask_p = pad_batch(ids, mask, np.arange(len(texts)), bsz, seq, e.tokenizer.pad_id)
+            k = min(eng.similarity_top_k * max(1, len(eng.modules)), eng._n_actual)
+            with torch.inference_mode():
+                vals, idx = embed_topk(
+                    e.model, *e.to_device(ids_p, mask_p), eng._stacked,
+                    k=k, n_actual=eng._n_actual, use_fused=eng.use_fused,
+                )
+                vals, idx = vals[: len(texts)].cpu().numpy(), idx[: len(texts)].cpu().numpy()
+            return [eng._postprocess(vals[i], idx[i]) for i in range(len(texts))]
 
     def retrieve_one(self, text: str):
         """Single query with the engine's LRU text cache semantics."""

@@ -62,6 +62,7 @@ from tensortruth_tpu_torch.parallel.sharded_topk import (
     sharded_topk,
 )
 from tensortruth_tpu_torch.retrieval.automerge import auto_merge
+from tensortruth_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -261,19 +262,24 @@ class MultiIndexEngine:
         int8 = self._stacked_scales is not None or self._stacked.dtype == torch.int8
         q_dtype = torch.bfloat16 if int8 else self._stacked.dtype
         q = torch.from_numpy(np.asarray(query_embs, dtype=np.float32)).to(self.device, q_dtype)
-        if self._ivf_sharded is not None:
-            vals, idx = ivf_search_sharded(self._ivf_sharded, q, k, nprobe=self.ivf_nprobe)
-            return [self._postprocess(vals[i], idx[i]) for i in range(vals.shape[0])]
-        if self._ivf is not None:
-            vals, idx = ivf_search(self._ivf, q, k, nprobe=self.ivf_nprobe)
-            return [self._postprocess(vals[i], idx[i]) for i in range(vals.shape[0])]
-        with torch.inference_mode():
-            if self.mesh is not None:
-                vals, idx = sharded_topk(q, self._stacked, k=k, n_actual=self._n_actual, use_fused=self.use_fused)
-            elif self._stacked_scales is not None:
-                vals, idx = fused_topk_int8(q, self._stacked, self._stacked_scales, k, n_actual=self._n_actual)
+        ivf = self._ivf_sharded is not None or self._ivf is not None
+        probes = {"nprobe": self.ivf_nprobe} if ivf else {}
+        with profiling.span("search", b=q.shape[0], n=self._n_actual, k=k, **probes):
+            if self._ivf_sharded is not None:
+                vals, idx = ivf_search_sharded(self._ivf_sharded, q, k, nprobe=self.ivf_nprobe)
+            elif self._ivf is not None:
+                vals, idx = ivf_search(self._ivf, q, k, nprobe=self.ivf_nprobe)
             else:
-                vals, idx = topk_search(q, self._stacked, k, exact=not self.use_fused, n_actual=self._n_actual)
+                with torch.inference_mode():
+                    if self.mesh is not None:
+                        vals, idx = sharded_topk(q, self._stacked, k=k, n_actual=self._n_actual,
+                                                 use_fused=self.use_fused)
+                    elif self._stacked_scales is not None:
+                        vals, idx = fused_topk_int8(q, self._stacked, self._stacked_scales, k, n_actual=self._n_actual)
+                    else:
+                        vals, idx = topk_search(q, self._stacked, k, exact=not self.use_fused, n_actual=self._n_actual)
+        if ivf:
+            return [self._postprocess(vals[i], idx[i]) for i in range(vals.shape[0])]
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         return [self._postprocess(vals[i], idx[i]) for i in range(vals.shape[0])]
 

@@ -15,14 +15,18 @@ device dispatches never block the event loop (reference chat.py:849-994).
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import json
 import logging
+import os
 import re
 import threading
 import time
 from collections import deque
 
 from aiohttp import WSMsgType, web
+
+from tensortruth_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -246,238 +250,260 @@ async def ws_chat(request: web.Request):
         msg = pending.popleft() if pending else await ws.receive()
         if msg.type != WSMsgType.TEXT:
             break
-        try:
-            data = json.loads(msg.data)
-        except json.JSONDecodeError:
-            await ws.send_json({"type": "error", "error": "invalid JSON"})
-            continue
-        if data.get("type") == "stop":
-            continue  # nothing streaming — stale stop, ignore
-        prompt = data.get("message", "")
-        session = services.session_service.get_session(session_id)
-        if session is None:
-            await ws.send_json({"type": "error", "error": "session not found"})
-            continue
-
-        # Attached base64 images persist under the session and get local
-        # URLs (reference chat.py image handling + services/image_service.py).
-        image_ids = _persist_images(session_id, data.get("images"))
-
-        # -- slash command? (reference chat.py:676-789) ----------------------
-        m = COMMAND_RE.match(prompt.strip())
-        if m:
-            cmd = services.command_registry.get(m.group(1))
-            if cmd is None:
-                await ws.send_json(
-                    {"type": "error", "error": f"unknown command /{m.group(1)}"}
-                )
+        rid = profiling.next_id()
+        # The message's spans carry its id; tt.ws.message ends at its sources frame.
+        with profiling.span("ws.message", rid) as message:
+            try:
+                data = json.loads(msg.data)
+            except json.JSONDecodeError:
+                await ws.send_json({"type": "error", "error": "invalid JSON"})
                 continue
-            ctx = _chat_context(services, session)
-            context = {
-                "config": services.config,
-                "params": ctx["params"],
-                "session_id": session_id,
-                "services": services,
-                "llm": _make_llm(services, ctx["params"]),
-                "reranker": _current_reranker(services),
-            }
-            full_text = []
-            try:
-                async for event in cmd.execute(m.group(2) or "", context):
-                    await ws.send_json(event)
-                    if event.get("type") == "token":
-                        full_text.append(event.get("content", ""))
-            except Exception as e:
-                logger.exception("command /%s failed", m.group(1))
-                await ws.send_json({"type": "error", "error": str(e)})
+            if data.get("type") == "stop":
+                continue  # nothing streaming — stale stop, ignore
+            prompt = data.get("message", "")
+            session = _session_io(services, rid, "get_session", session_id)
+            if session is None:
+                await ws.send_json({"type": "error", "error": "session not found"})
                 continue
-            services.session_service.add_message(session_id, "user", prompt)
-            if full_text:
-                services.session_service.add_message(
-                    session_id, "assistant", "".join(full_text)
-                )
-            continue
 
-        ctx = _chat_context(services, session)
-        # Engine load follows the SAME read-while-working contract as
-        # streaming: a cold load at the 1M tier takes minutes (index mmap +
-        # hierarchy parse + first compiles), and aiohttp only processes the
-        # client's heartbeat PONGs inside ws.receive() — a bare await here
-        # let _pong_not_received fire at heartbeat+grace (450 s) and reap
-        # every connected session mid-load (found by
-        # scripts/measure_serving_e2e.py driving 64 cold WS sessions).
-        async def _safe_load():
-            try:
-                return True, await _ensure_engine(services, ctx)
-            except Exception as e:  # surfaced as a WS error frame below
-                logger.exception("engine load failed")
-                return False, e
-        load_task = asyncio.ensure_future(_safe_load())
-        try:
-            outcome, load_result = await _stream_with_receive(ws, load_task, pending)
-        except asyncio.CancelledError:
-            load_task.cancel()
-            raise
-        if outcome == "client_gone":
-            load_task.cancel()  # only this waiter; the shared build continues
-            return ws
-        if outcome == "stopped":
-            load_task.cancel()
-            await ws.send_json({"type": "done", "content": "", "cancelled": True})
-            continue
-        load_ok, engine = load_result
-        if not load_ok:
-            await ws.send_json(
-                {"type": "error", "error": f"engine load failed: {engine}"}
-            )
-            continue
+            # Attached base64 images persist under the session and get local
+            # URLs (reference chat.py image handling + services/image_service.py).
+            with profiling.span("route.context", rid):
+                image_ids = _persist_images(session_id, data.get("images"))
 
-        messages = session.get("messages", [])
-        services.session_service.add_message(
-            session_id, "user", prompt,
-            **({"images": image_ids} if image_ids else {}),
-        )
-
-        # -- orchestrator path (reference chat.py:245-537): enabled param +
-        # tool-capable model; any failure falls back to the direct pipeline.
-        # Same read-while-streaming contract as the direct path: the
-        # orchestrator runs as a task while we keep receiving, so a
-        # {"type": "stop"} cancels the whole agent loop (CancelledError
-        # aborts the in-flight LLM/tool awaits) without losing the socket.
-        if _orchestrator_enabled(services, ctx["params"]):
-            orch_task = asyncio.ensure_future(_run_orchestrator(
-                services, ws, session_id, session, prompt, ctx, messages,
-                engine=engine, images=data.get("images") or None,
-            ))
-            try:
-                outcome, ok = await _stream_with_receive(ws, orch_task, pending)
-            except asyncio.CancelledError:
-                orch_task.cancel()  # don't leave the agent loop running
-                raise
-            if outcome != "done":
-                orch_task.cancel()
+            # -- slash command? (reference chat.py:676-789) ----------------------
+            m = COMMAND_RE.match(prompt.strip())
+            if m:
+                cmd = services.command_registry.get(m.group(1))
+                if cmd is None:
+                    await ws.send_json(
+                        {"type": "error", "error": f"unknown command /{m.group(1)}"}
+                    )
+                    continue
+                with profiling.span("route.context", rid):
+                    ctx = _chat_context(services, session)
+                context = {
+                    "config": services.config,
+                    "params": ctx["params"],
+                    "session_id": session_id,
+                    "services": services,
+                    "llm": _make_llm(services, ctx["params"]),
+                    "reranker": _current_reranker(services),
+                }
+                full_text = []
                 try:
-                    await orch_task
-                except (asyncio.CancelledError, ConnectionResetError, RuntimeError):
-                    pass
-                if outcome == "client_gone":
-                    return ws
+                    async for event in cmd.execute(m.group(2) or "", context):
+                        await ws.send_json(event)
+                        if event.get("type") == "token":
+                            full_text.append(event.get("content", ""))
+                except Exception as e:
+                    logger.exception("command /%s failed", m.group(1))
+                    await ws.send_json({"type": "error", "error": str(e)})
+                    continue
+                _session_io(services, rid, "add_message", session_id, "user", prompt)
+                if full_text:
+                    _session_io(
+                        services, rid, "add_message", session_id, "assistant", "".join(full_text)
+                    )
+                continue
+
+            with profiling.span("route.context", rid):
+                ctx = _chat_context(services, session)
+            # Engine load follows the SAME read-while-working contract as
+            # streaming: a cold load at the 1M tier takes minutes (index mmap +
+            # hierarchy parse + first compiles), and aiohttp only processes the
+            # client's heartbeat PONGs inside ws.receive() — a bare await here
+            # let _pong_not_received fire at heartbeat+grace (450 s) and reap
+            # every connected session mid-load (found by
+            # scripts/measure_serving_e2e.py driving 64 cold WS sessions).
+            async def _safe_load():
+                try:
+                    return True, await _ensure_engine(services, ctx)
+                except Exception as e:  # surfaced as a WS error frame below
+                    logger.exception("engine load failed")
+                    return False, e
+            load_task = asyncio.ensure_future(_safe_load())
+            try:
+                outcome, load_result = await _stream_with_receive(ws, load_task, pending)
+            except asyncio.CancelledError:
+                load_task.cancel()
+                raise
+            if outcome == "client_gone":
+                load_task.cancel()  # only this waiter; the shared build continues
+                return ws
+            if outcome == "stopped":
+                load_task.cancel()
                 await ws.send_json({"type": "done", "content": "", "cancelled": True})
                 continue
-            if ok:
+            load_ok, engine = load_result
+            if not load_ok:
+                await ws.send_json(
+                    {"type": "error", "error": f"engine load failed: {engine}"}
+                )
                 continue
 
-        # -- direct RAG path ---------------------------------------------------
-
-        loop = asyncio.get_running_loop()
-        queue: asyncio.Queue = asyncio.Queue()
-        DONE = object()
-        cancel = threading.Event()
-
-        def pump():
-            rag = services.rag_service
-            gen = rag.query(
-                prompt, params=ctx["params"], session_messages=messages,
-                engine=engine, images=data.get("images") or None,
-                system_prompt=ctx["system_prompt"] or None,
+            messages = session.get("messages", [])
+            _session_io(
+                services, rid, "add_message", session_id, "user", prompt,
+                **({"images": image_ids} if image_ids else {}),
             )
-            while True:
-                # Client gone (Stop button / dropped peer): close the
-                # generator so GeneratorExit aborts the provider stream at
-                # its current yield — without this the pump keeps pulling
-                # LLM tokens into a queue nobody drains.
-                if cancel.is_set():
-                    gen.close()
-                    loop.call_soon_threadsafe(queue.put_nowait, (DONE, None))
-                    return
+
+            # -- orchestrator path (reference chat.py:245-537): enabled param +
+            # tool-capable model; any failure falls back to the direct pipeline.
+            # Same read-while-streaming contract as the direct path: the
+            # orchestrator runs as a task while we keep receiving, so a
+            # {"type": "stop"} cancels the whole agent loop (CancelledError
+            # aborts the in-flight LLM/tool awaits) without losing the socket.
+            if _orchestrator_enabled(services, ctx["params"]):
+                orch_task = asyncio.ensure_future(_run_orchestrator(
+                    services, ws, session_id, session, prompt, ctx, messages,
+                    engine=engine, images=data.get("images") or None,
+                ))
                 try:
-                    chunk = next(gen)
-                    loop.call_soon_threadsafe(queue.put_nowait, chunk)
-                except StopIteration as stop:
-                    loop.call_soon_threadsafe(queue.put_nowait, (DONE, stop.value))
-                    return
-                except Exception as e:  # surface pipeline errors to the client
-                    loop.call_soon_threadsafe(queue.put_nowait, (DONE, e))
-                    return
+                    outcome, ok = await _stream_with_receive(ws, orch_task, pending)
+                except asyncio.CancelledError:
+                    orch_task.cancel()  # don't leave the agent loop running
+                    raise
+                if outcome != "done":
+                    orch_task.cancel()
+                    try:
+                        await orch_task
+                    except (asyncio.CancelledError, ConnectionResetError, RuntimeError):
+                        pass
+                    if outcome == "client_gone":
+                        return ws
+                    await ws.send_json({"type": "done", "content": "", "cancelled": True})
+                    continue
+                if ok:
+                    continue
 
-        task = loop.run_in_executor(None, pump)
+            # -- direct RAG path ---------------------------------------------------
 
-        async def drain_and_send():
-            """Forward pump chunks to the socket; returns the RAGResponse."""
-            while True:
-                item = await queue.get()
-                if isinstance(item, tuple) and item[0] is DONE:
-                    return item[1]
-                if item.status:
-                    await ws.send_json({"type": "status", "status": item.status})
-                if item.thinking:
-                    await ws.send_json({"type": "thinking", "content": item.thinking})
-                if item.text:
-                    await ws.send_json({"type": "token", "content": item.text})
+            loop = asyncio.get_running_loop()
+            queue: asyncio.Queue = asyncio.Queue()
+            DONE = object()
+            cancel = threading.Event()
 
-        # Stream AND read concurrently (_stream_with_receive): a close frame
-        # or stop must be seen while the server generates. On cancellation
-        # or peer loss the executor pump is NOT cancelled with the task —
-        # flag it (it closes the generator within one chunk) and join.
-        send_task = asyncio.ensure_future(drain_and_send())
-        t_gen0 = time.monotonic()
-        try:
-            outcome, response = await _stream_with_receive(ws, send_task, pending)
-        except asyncio.CancelledError:
-            logger.debug("ws handler cancelled by transport close")
-            cancel.set()
-            raise
-        stopped = outcome == "stopped"
-        client_gone = outcome == "client_gone"
-        if outcome != "done":
-            cancel.set()
-            logger.debug("ws stream cancelling: gone=%s stopped=%s", client_gone, stopped)
-            send_task.cancel()
+            def pump():
+                rag = services.rag_service
+                gen = rag.query(
+                    prompt, params=ctx["params"], session_messages=messages,
+                    engine=engine, images=data.get("images") or None,
+                    system_prompt=ctx["system_prompt"] or None,
+                )
+                while True:
+                    # Client gone (Stop button / dropped peer): close the
+                    # generator so GeneratorExit aborts the provider stream at
+                    # its current yield — without this the pump keeps pulling
+                    # LLM tokens into a queue nobody drains.
+                    if cancel.is_set():
+                        gen.close()
+                        loop.call_soon_threadsafe(queue.put_nowait, (DONE, None))
+                        return
+                    try:
+                        chunk = next(gen)
+                        loop.call_soon_threadsafe(queue.put_nowait, chunk)
+                    except StopIteration as stop:
+                        loop.call_soon_threadsafe(queue.put_nowait, (DONE, stop.value))
+                        return
+                    except Exception as e:  # surface pipeline errors to the client
+                        loop.call_soon_threadsafe(queue.put_nowait, (DONE, e))
+                        return
+
+            # In a copy of this task's context: the pump's spans carry the message's id.
+            task = loop.run_in_executor(None, contextvars.copy_context().run, pump)
+
+            async def drain_and_send():
+                """Forward pump chunks to the socket; returns the RAGResponse."""
+                while True:
+                    item = await queue.get()
+                    if isinstance(item, tuple) and item[0] is DONE:
+                        return item[1]
+                    if item.status:
+                        await ws.send_json({"type": "status", "status": item.status})
+                    if item.thinking:
+                        await ws.send_json({"type": "thinking", "content": item.thinking})
+                    if item.text:
+                        await ws.send_json({"type": "token", "content": item.text})
+
+            # Stream AND read concurrently (_stream_with_receive): a close frame
+            # or stop must be seen while the server generates. On cancellation
+            # or peer loss the executor pump is NOT cancelled with the task —
+            # flag it (it closes the generator within one chunk) and join.
+            send_task = asyncio.ensure_future(drain_and_send())
+            t_gen0 = time.monotonic()
             try:
-                await send_task
-            except (asyncio.CancelledError, ConnectionResetError, RuntimeError):
-                pass
-        await task
-        logger.debug("ws stream pump joined (gone=%s stopped=%s)", client_gone, stopped)
-        if client_gone:
-            return ws
-        if stopped:
-            await ws.send_json({"type": "done", "content": "", "cancelled": True})
-            continue
-        if isinstance(response, Exception):
-            await ws.send_json({"type": "error", "error": str(response)})
-            continue
+                outcome, response = await _stream_with_receive(ws, send_task, pending)
+            except asyncio.CancelledError:
+                logger.debug("ws handler cancelled by transport close")
+                cancel.set()
+                raise
+            stopped = outcome == "stopped"
+            client_gone = outcome == "client_gone"
+            if outcome != "done":
+                cancel.set()
+                logger.debug("ws stream cancelling: gone=%s stopped=%s", client_gone, stopped)
+                send_task.cancel()
+                try:
+                    await send_task
+                except (asyncio.CancelledError, ConnectionResetError, RuntimeError):
+                    pass
+            await task
+            logger.debug("ws stream pump joined (gone=%s stopped=%s)", client_gone, stopped)
+            if client_gone:
+                return ws
+            if stopped:
+                await ws.send_json({"type": "done", "content": "", "cancelled": True})
+                continue
+            if isinstance(response, Exception):
+                await ws.send_json({"type": "error", "error": str(response)})
+                continue
 
-        sources = [s.to_dict() for s in response.sources]
-        await ws.send_json({"type": "sources", "sources": sources})
-        # generation stats (reference chat.py:934-942 done-message token
-        # estimates; SPA shows them like ResponseStats) — ONE dict, sent on
-        # the wire and persisted verbatim so frame and message can't drift
-        stats = _gen_stats(response.text, time.monotonic() - t_gen0)
-        await ws.send_json(
-            {
-                "type": "done",
-                "content": response.text,
-                "metrics": response.metrics,
-                "confidence": response.confidence,
-                "stats": stats,
-            }
-        )
-        services.session_service.add_message(
-            session_id, "assistant", response.text,
-            sources=sources, metrics=response.metrics,
-            # persisted so a reloaded session still shows the confidence
-            # badge and generation stats (reference chat.py:507-519 metrics
-            # persistence; SPA renderHistoryMessage reads these fields)
-            confidence=response.confidence,
-            stats=stats,
-        )
-        # Smart title from the first exchange (reference chat.py:501-537).
-        if session.get("title_needs_update") and response.text:
-            title = _smart_title(prompt, services, ctx["params"])
-            services.session_service.set_title(session_id, title)
-            await ws.send_json({"type": "title", "title": title})
+            sources = [s.to_dict() for s in response.sources]
+            await ws.send_json({"type": "sources", "sources": sources})
+            message.close()
+            # generation stats (reference chat.py:934-942 done-message token
+            # estimates; SPA shows them like ResponseStats) — ONE dict, sent on
+            # the wire and persisted verbatim so frame and message can't drift
+            stats = _gen_stats(response.text, time.monotonic() - t_gen0)
+            await ws.send_json(
+                {
+                    "type": "done",
+                    "content": response.text,
+                    "metrics": response.metrics,
+                    "confidence": response.confidence,
+                    "stats": stats,
+                }
+            )
+            _session_io(
+                services, rid, "add_message", session_id, "assistant", response.text,
+                sources=sources, metrics=response.metrics,
+                # persisted so a reloaded session still shows the confidence
+                # badge and generation stats (reference chat.py:507-519 metrics
+                # persistence; SPA renderHistoryMessage reads these fields)
+                confidence=response.confidence,
+                stats=stats,
+            )
+            # Smart title from the first exchange (reference chat.py:501-537).
+            if session.get("title_needs_update") and response.text:
+                with profiling.span("route.title", rid):
+                    title = _smart_title(prompt, services, ctx["params"])
+                _session_io(services, rid, "set_title", session_id, title)
+                await ws.send_json({"type": "title", "title": title})
     return ws
+
+
+def _session_io(services, rid, method: str, session_id: str, *args, **kw):
+    """``session_service.<method>(session_id, ...)`` on the event loop, under
+    a ``tt.route.session_io`` span; a call that writes counts the bytes of
+    the session file and the session index it leaves (each rewritten whole)."""
+    svc = services.session_service
+    with profiling.span("route.session_io", rid) as span:
+        out = getattr(svc, method)(session_id, *args, **kw)
+        if span and method != "get_session":
+            files = (svc._session_file(session_id), svc.index_file)
+            span.count(bytes=sum(os.path.getsize(f) for f in files if os.path.exists(f)))
+    return out
 
 
 def _orchestrator_enabled(services, params: dict) -> bool:

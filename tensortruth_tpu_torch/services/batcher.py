@@ -17,8 +17,11 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
+
+from tensortruth_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -28,6 +31,8 @@ class _Request:
     text: str
     key: object = None  # engine pin: only same-key requests batch together
     future: Future = field(default_factory=Future)
+    rids: tuple = ()  # the chat messages it serves (utils/profiling.py spans)
+    t_submit: float = field(default_factory=time.perf_counter)
 
 
 class QueryBatcher:
@@ -84,7 +89,8 @@ class QueryBatcher:
 
     def submit(self, text: str, key: object = None) -> Future:
         self.start()
-        req = _Request(text, key=key)
+        cur = profiling.current_span()
+        req = _Request(text, key=key, rids=cur.rids if cur is not None else ())
         self._queue.put(req)
         return req.future
 
@@ -118,7 +124,8 @@ class QueryBatcher:
         """Run a two-phase batch's finisher and settle its futures."""
         reqs, finish = pending
         try:
-            results = finish()
+            with profiling.span("batcher.finish", [i for r in reqs for i in r.rids], requests=len(reqs)):
+                results = finish()
             if len(results) != len(reqs):
                 raise RuntimeError(
                     f"finish returned {len(results)} results for "
@@ -151,8 +158,13 @@ class QueryBatcher:
             for r in batch:
                 groups.setdefault(id(r.key), []).append(r)
             for reqs in groups.values():
+                t_dispatch = time.perf_counter()
+                for r in reqs:  # each request's wait, submit to this dispatch
+                    profiling.record("batcher.queue", r.rids, r.t_submit, t_dispatch)
                 try:
-                    out = self.run_batch([r.text for r in reqs], reqs[0].key)
+                    with profiling.span("batcher.dispatch", [i for r in reqs for i in r.rids],
+                                        requests=len(reqs)):
+                        out = self.run_batch([r.text for r in reqs], reqs[0].key)
                 except Exception as e:
                     logger.exception("batched dispatch failed")
                     for req in reqs:

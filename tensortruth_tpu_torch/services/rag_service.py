@@ -48,6 +48,7 @@ from tensortruth_tpu_torch.retrieval.ranking import (
     RankingStage,
     apply_confidence_gate,
 )
+from tensortruth_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -289,8 +290,9 @@ class RAGService:
         if engine.pipeline is not None and engine.pipeline.applicable():
             retrieved_all = engine.pipeline.retrieve_batch(texts)
         else:
-            q_embs = engine.embedder.encode(list(texts), is_query=True)
-            retrieved_all = engine.retriever.retrieve_batch(q_embs)
+            with profiling.span("query_step", queries=len(texts)):  # the encode counts its tokens
+                q_embs = engine.embedder.encode(list(texts), is_query=True)
+                retrieved_all = engine.retriever.retrieve_batch(q_embs)
         sources_all = [
             [SourceNode.from_retrieved(r) for r in retrieved]
             for retrieved in retrieved_all
@@ -342,62 +344,64 @@ class RAGService:
     ) -> RetrievalResult:
         from tensortruth_tpu_torch.utils.profiling import StageTimer
 
-        engine = engine if engine is not None else self._engine
-        assert engine is not None
-        timer = StageTimer()
+        # On the pump thread: condense, then (batched) blocked on the batcher.
+        with profiling.span("rag.retrieve"):
+            engine = engine if engine is not None else self._engine
+            assert engine is not None
+            timer = StageTimer()
 
-        condensed = prompt
-        if history_str.strip():
-            with timer.stage("condense"):
-                try:
-                    condensed = condense_query(
-                        self._get_llm({**params, "temperature": 0.1}),
-                        history_str,
-                        prompt,
-                    )
-                except Exception as e:
-                    logger.warning("condenser unavailable (%s)", e)
+            condensed = prompt
+            if history_str.strip():
+                with timer.stage("condense"):
+                    try:
+                        condensed = condense_query(
+                            self._get_llm({**params, "temperature": 0.1}),
+                            history_str,
+                            prompt,
+                        )
+                    except Exception as e:
+                        logger.warning("condenser unavailable (%s)", e)
 
-        top_n = engine.params.get("reranker_top_n", 5)
-        if self._batcher is not None:
-            # Micro-batched path: embed→top-k→rerank coalesced with every
-            # other in-flight query (services/batcher.py).
-            with timer.stage("batched_retrieve_rerank"):
-                sources = self._batcher.retrieve(condensed, key=engine)
-        else:
-            if engine.pipeline is not None and engine.pipeline.applicable():
-                # Fused single-dispatch embed→top-k (pipeline.py).
-                with timer.stage("embed_topk_fused"):
-                    retrieved = engine.pipeline.retrieve_one(condensed)
+            top_n = engine.params.get("reranker_top_n", 5)
+            if self._batcher is not None:
+                # Micro-batched path: embed→top-k→rerank coalesced with every
+                # other in-flight query (services/batcher.py).
+                with timer.stage("batched_retrieve_rerank"):
+                    sources = self._batcher.retrieve(condensed, key=engine)
             else:
-                with timer.stage("embed"):
-                    q_emb = engine.embedder.encode([condensed], is_query=True)[0]
-                with timer.stage("topk_merge"):
-                    retrieved = engine.retriever.retrieve(q_emb, condensed)
-            sources = [SourceNode.from_retrieved(r) for r in retrieved]
-
-            with timer.stage("rerank"):
-                if engine.reranker is not None and sources:
-                    # No fallback to the dense order: a rerank failure raises.
-                    stage = RankingStage(reranker=engine.reranker)
-                    sources = stage.rank(sources, condensed, top_n=top_n).passed[:top_n]
+                if engine.pipeline is not None and engine.pipeline.applicable():
+                    # Fused single-dispatch embed→top-k (pipeline.py).
+                    with timer.stage("embed_topk_fused"):
+                        retrieved = engine.pipeline.retrieve_one(condensed)
                 else:
-                    sources = sources[:top_n]
+                    with timer.stage("embed"):
+                        q_emb = engine.embedder.encode([condensed], is_query=True)[0]
+                    with timer.stage("topk_merge"):
+                        retrieved = engine.retriever.retrieve(q_emb, condensed)
+                sources = [SourceNode.from_retrieved(r) for r in retrieved]
 
-        kept, level = apply_confidence_gate(
-            sources,
-            cutoff=engine.params.get("confidence_cutoff", 0.35),
-            cutoff_hard=engine.params.get("confidence_cutoff_hard", 0.05),
-        )
-        metrics = compute_retrieval_metrics(kept)
-        metrics.configured_top_n = top_n
-        self.last_timings = timer.to_dict()
-        return RetrievalResult(
-            sources=kept,
-            metrics={**metrics.to_dict(), "timings": self.last_timings},
-            confidence=level.value,
-            condensed_query=condensed,
-        )
+                with timer.stage("rerank"):
+                    if engine.reranker is not None and sources:
+                        # No fallback to the dense order: a rerank failure raises.
+                        stage = RankingStage(reranker=engine.reranker)
+                        sources = stage.rank(sources, condensed, top_n=top_n).passed[:top_n]
+                    else:
+                        sources = sources[:top_n]
+
+            kept, level = apply_confidence_gate(
+                sources,
+                cutoff=engine.params.get("confidence_cutoff", 0.35),
+                cutoff_hard=engine.params.get("confidence_cutoff_hard", 0.05),
+            )
+            metrics = compute_retrieval_metrics(kept)
+            metrics.configured_top_n = top_n
+            self.last_timings = timer.to_dict()
+            return RetrievalResult(
+                sources=kept,
+                metrics={**metrics.to_dict(), "timings": self.last_timings},
+                confidence=level.value,
+                condensed_query=condensed,
+            )
 
     # -- agent-tool retrieval --------------------------------------------------
 
@@ -505,12 +509,14 @@ class RAGService:
         yield RAGChunk(status="generating")
         parts: list[str] = []
         try:
-            for delta in llm.stream_chat(messages, system=system):
-                if delta.thinking:
-                    yield RAGChunk(thinking=delta.thinking)
-                if delta.text:
-                    parts.append(delta.text)
-                    yield RAGChunk(text=delta.text)
+            with profiling.span("llm.stream") as span:
+                for delta in llm.stream_chat(messages, system=system):
+                    span.count(chunks=1)
+                    if delta.thinking:
+                        yield RAGChunk(thinking=delta.thinking)
+                    if delta.text:
+                        parts.append(delta.text)
+                        yield RAGChunk(text=delta.text)
         except Exception as e:
             err = f"\n\n[LLM error: {e}]"
             parts.append(err)

@@ -1,16 +1,32 @@
-"""Per-stage timing + device tracing for the query pipeline.
+"""Per-stage timing, device tracing and spans for the serving path.
 
 SURVEY.md §5.1: the reference's observability is per-query RetrievalMetrics;
 the engine adds stage-level wall timings (condense / embed / top-k / rerank)
 attached to every query's metrics, and optional ``torch.profiler`` traces
 (host ops and the card's kernels, written as Chrome traces) for deep dives.
+
+While a ``torch.profiler`` trace records (``start_trace``, or any profiler
+in the process), ``span`` marks each layer boundary of the serving path as a
+``record_function`` range named ``tt.<name>``, on the same clock and thread
+as the host ops and kernels it launches, and keeps one ``Record`` of it in a
+bounded ring that ``recorded`` reads. A span carries the ids of the chat
+messages it serves (one id per message, drawn by ``next_id`` where the
+WebSocket route receives it; a span with none takes its parent's); the
+Chrome trace carries them after the name, ``tt.batcher.dispatch@3,4``.
+Without a trace recording a span is one flag test and records nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
+from collections import deque, namedtuple
+from contextvars import ContextVar
+
+import torch.autograd.profiler as _torch_profiler
 
 
 class StageTimer:
@@ -80,3 +96,123 @@ def device_trace(log_dir: str | None, cuda: bool = True):
         yield
     finally:
         stop_trace()
+
+
+# -- spans of the serving path --------------------------------------------------
+
+RING_SIZE = 65536
+
+
+# One finished span: ``tt.<name>``, the message ids it served, its own
+# sequence number and its parent's, the native id of the thread it ran on,
+# ``time.perf_counter()`` at its start and end, and its counts.
+Record = namedtuple("Record", "name rids seq parent thread t0 t1 counts")
+
+_ring: deque = deque(maxlen=RING_SIZE)
+_message_ids = itertools.count(1)
+_span_ids = itertools.count(1)
+# The innermost open span of this thread or asyncio task.
+_current: ContextVar = ContextVar("tt_span", default=None)
+
+
+def next_id() -> int:
+    """A new message id (unique in the process)."""
+    return next(_message_ids)
+
+
+def _ids(rid) -> tuple:
+    if rid is None:
+        return ()
+    return (rid,) if isinstance(rid, int) else tuple(rid)
+
+
+class _Span:
+    def __init__(self, name: str, rids: tuple, counts: dict):
+        self.name, self.rids, self.counts = name, rids, counts
+
+    def __enter__(self):
+        parent = _current.get()
+        if not self.rids and parent is not None:
+            self.rids = parent.rids
+        self.seq, self.parent = next(_span_ids), parent.seq if parent is not None else None
+        self._token = _current.set(self)
+        label = self.name + "@" + ",".join(map(str, self.rids)) if self.rids else self.name
+        self._range = _torch_profiler.record_function(label)
+        self._range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def count(self, **counts) -> None:
+        """Add to the span's counts."""
+        for key, n in counts.items():
+            self.counts[key] = self.counts.get(key, 0) + n
+
+    def close(self) -> None:
+        """End the span now (before its block ends); later calls do nothing."""
+        if self._range is None:
+            return
+        t1 = time.perf_counter()
+        self._range.__exit__(None, None, None)
+        self._range = None
+        try:
+            _current.reset(self._token)
+        except ValueError:  # closed from another context (a generator finalised elsewhere)
+            pass
+        _ring.append(Record(self.name, self.rids, self.seq, self.parent, threading.get_native_id(), self.t0, t1,
+                            self.counts))
+
+
+class _Off:
+    # The span while no trace records: does nothing.
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+    def __bool__(self) -> bool:
+        return False
+
+    def count(self, **counts) -> None:
+        return None
+
+    def close(self) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+def span(name: str, rid=None, **counts):
+    """Context manager around one layer boundary, usable from any thread:
+    span ``tt.<name>`` for the message id(s) ``rid`` (an id or several; by
+    default the enclosing span's), with ``counts``. It is false, and
+    records nothing, while no profiler records."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span("tt." + name, _ids(rid), counts)
+
+
+def record(name: str, rid, t0: float, t1: float, **counts) -> None:
+    """Keep a span measured elsewhere (``t0``, ``t1`` on ``time.perf_counter``),
+    such as a wait that starts on one thread and ends on another; it is kept
+    in the ring only, with no ``record_function`` range."""
+    if not _torch_profiler._is_profiler_enabled:
+        return
+    parent = _current.get()
+    _ring.append(Record("tt." + name, _ids(rid), next(_span_ids), parent.seq if parent is not None else None,
+                        threading.get_native_id(), t0, t1, counts))
+
+
+def current_span():
+    """The innermost open span of this thread or task, or None."""
+    return _current.get()
+
+
+def recorded(t0: float, t1: float, name: str | None = None) -> list[Record]:
+    """The ring's records that started and ended between ``t0`` and ``t1``
+    (``time.perf_counter``), of span ``name`` (``tt.<name>``) or of all."""
+    return [r for r in list(_ring) if t0 <= r.t0 and r.t1 <= t1 and (name is None or r.name == name)]

@@ -5,7 +5,8 @@ The port imports nothing of ``tensortruth_tpu``: it keeps copies of the
 jax-free host code it runs (``app/{config,paths,history_cleaner}``,
 ``core/{source,prompts,providers}``, ``index/`` (``packed.py`` is adapted:
 test_torch_server.py names its one changed function), ``native/hostkit``,
-``services/{batcher,chat_history,condenser,feeder}``, ``tokenization/``
+``services/{chat_history,condenser,feeder}`` (``batcher.py`` is adapted:
+test_torch_server.py names its changed members), ``tokenization/``
 and ``StageTimer`` of ``utils/profiling``; for the offline build path
 ``core/types``, ``app/sources``, ``utils/{pdf,validation,interactive}``,
 ``indexing/``, ``web/html2md``, ``scrapers/`` and ``fetch_sources``; for
@@ -39,7 +40,7 @@ COPIED = [
     "core/__init__.py", "core/source.py", "core/prompts.py", "core/providers.py",
     "index/__init__.py", "index/chunker.py", "index/nodes.py", "index/store.py",
     "native/__init__.py", "native/hostkit.py", "native/hostkit.cpp",
-    "services/batcher.py", "services/chat_history.py", "services/condenser.py", "services/feeder.py",
+    "services/chat_history.py", "services/condenser.py", "services/feeder.py",
     "tokenization/__init__.py", "tokenization/tokenizer.py", "utils/__init__.py",
     # the offline build path and its ingestion front
     "core/types.py", "app/sources.py", "utils/pdf.py", "utils/validation.py", "utils/interactive.py",

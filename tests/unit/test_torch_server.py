@@ -56,8 +56,23 @@ ADAPTED = {
     "server/routes/system.py": {"<docstring>", "device_entries", "memory", "devices", "profile_start",
                                 "profile_stop"},
     "server/routes/config.py": {"get_devices"},
-    "server/routes/chat.py": {"_current_reranker"},
-    "utils/profiling.py": {"<docstring>", "import os", "_active", "start_trace", "stop_trace", "device_trace"},
+    # ws_chat draws each message's id and opens the spans of utils/profiling.py
+    "server/routes/chat.py": {"_current_reranker", "ws_chat", "_session_io", "import contextvars", "import os",
+                              "from tensortruth_tpu_torch.utils import profiling"},
+    "utils/profiling.py": {"<docstring>", "import os", "_active", "start_trace", "stop_trace", "device_trace",
+                           # the span recorder
+                           "import itertools", "import threading", "from collections import deque, namedtuple",
+                           "from contextvars import ContextVar", "import torch.autograd.profiler as _torch_profiler",
+                           "RING_SIZE", "Record", "_ring", "_message_ids", "_span_ids", "_current", "next_id", "_ids",
+                           "_Span.__init__", "_Span.__enter__", "_Span.__exit__", "_Span.count", "_Span.close",
+                           "_Off.__enter__", "_Off.__exit__", "_Off.__bool__", "_Off.count", "_Off.close", "_OFF",
+                           "span", "record", "current_span", "recorded"},
+    # stamps each request's submit time and message ids, and spans the
+    # dispatch, the finisher and each request's wait in the queue
+    "services/batcher.py": {"import time", "from tensortruth_tpu_torch.utils import profiling",
+                            "_Request.rids: tuple = ()",
+                            "_Request.t_submit: float = field(default_factory=time.perf_counter)",
+                            "QueryBatcher.submit", "QueryBatcher._loop", "QueryBatcher._resolve"},
     # takes no exclusive lock when there is nothing to heal (ROADMAP C)
     "index/packed.py": {"is_packed"},
     # a failed rag_query raises out of the agent instead of becoming an
@@ -351,6 +366,61 @@ def test_profile_routes_write_a_torch_trace(served, tmp_path):
     trace = pathlib.Path(stopped["trace"])
     assert stopped["status"] == "stopped" and trace.parent == tmp_path / "prof"
     assert "aten::" in trace.read_text()  # the chat's host ops
+
+
+# The serving path's spans (utils/profiling.py), one WebSocket message through it.
+SPANS = {"ws.message", "route.session_io", "route.title", "route.context", "rag.retrieve", "batcher.queue",
+         "batcher.dispatch", "batcher.finish", "query_step", "search", "rerank.launch", "rerank.finish", "llm.stream"}
+
+
+def test_ws_message_spans_each_layer_under_its_id(served, tmp_path):
+    """A trace taken through the profile routes around one WebSocket message
+    (the app's default batcher on) holds every span of the serving path
+    under the message's id, in the ring and in the exported Chrome trace
+    (``tt.<name>@<id>``; the queue wait crosses threads and is kept in the
+    ring only). The dispatch names the message, no span counts more real
+    tokens than slots, and the reranker scores each of the query's 10
+    candidates."""
+    import json
+    import time
+
+    from tensortruth_tpu_torch.utils import profiling
+
+    start, run = served
+    client = start(PORT)
+
+    async def chat():
+        sid = await _session(client, modules=["alpha"])
+        await client.post("/api/system/profile/start", json={"log_dir": str(tmp_path / "prof")})
+        t0 = time.perf_counter()
+        frames = (await _ws(client, sid, "Paragraph 3 about topic 3"))[0]
+        t1 = time.perf_counter()
+        stop = await (await client.post("/api/system/profile/stop")).json()
+        return frames, t0, t1, stop
+
+    frames, t0, t1, stop = run(chat())
+    assert [f["type"] for f in frames][-3:] == ["sources", "done", "title"]
+    recs = profiling.recorded(t0, t1)
+    assert {r.name for r in recs} == {"tt." + name for name in SPANS}
+    (msg,) = [r for r in recs if r.name == "tt.ws.message"]
+    assert len(msg.rids) == 1 and all(r.rids == msg.rids for r in recs)
+    by_name = {}
+    for r in recs:
+        by_name.setdefault(r.name, []).append(r)
+    (dispatch,) = by_name["tt.batcher.dispatch"]
+    (queue,) = by_name["tt.batcher.queue"]
+    (launch,) = by_name["tt.rerank.launch"]
+    (step,) = by_name["tt.query_step"]
+    assert dispatch.counts == {"requests": 1} and queue.t1 <= dispatch.t0 + 1e-3
+    assert step.counts["queries"] == 1 and 0 < step.counts["tokens"] <= step.counts["slots"]
+    assert launch.counts["pairs"] == 10 * dispatch.counts["requests"]
+    assert 0 < launch.counts["tokens"] <= launch.counts["slots"] and launch.counts["forwards"] >= 1
+    assert {r.thread for r in by_name["tt.route.session_io"]} == {msg.thread}
+    assert [r.counts.get("bytes", 0) > 0 for r in by_name["tt.route.session_io"]] == [False, True, True, True]
+    (rid,) = msg.rids
+    events = json.loads(pathlib.Path(stop["trace"]).read_text())["traceEvents"]
+    named = {e["name"] for e in events if e.get("ph") == "X" and str(e.get("name", "")).startswith("tt.")}
+    assert named == {f"tt.{name}@{rid}" for name in SPANS - {"batcher.queue"}}
 
 
 def test_default_app_loads_on_cuda_and_never_answers_from_the_cpu(served):
