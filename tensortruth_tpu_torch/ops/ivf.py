@@ -8,7 +8,9 @@ Port of ``tensortruth_tpu/ops/ivf.py``, with its cluster-sharded tier
   padded (n_clusters, rows_per_cluster, D) block tensor in the storage dtype
   (bf16, or int8 with per-row scales), overflow spilling to the second-best
   cluster and then capacity-aware. ``row_map`` carries padded positions to
-  original rows (-1 for padding).
+  original rows (-1 for padding). Blocks for the device are staged there by
+  the assignment pass and scattered once; blocks kept in host memory (the
+  mesh tier) are filled by a host pass.
 * **Query:** (B, n_clusters) centroid scores -> top-``nprobe`` clusters ->
   probe scores (B, nprobe, rows_per_cluster) -> one stable top-k over the
   probed positions ``probe * rpc + slot``.
@@ -284,13 +286,63 @@ def _sample_rows(pieces_fn, n: int, d: int, rows: np.ndarray) -> np.ndarray:
     return out
 
 
-def _assign_top2(pieces_fn, n: int, centroids: np.ndarray, device, step: int = 262_144):
+def _device_chunks(pieces_fn, device, step: int = 262_144):
+    """(row offset, f32 chunk on ``device``) for every ``step`` rows of the
+    row-contiguous pieces, in order."""
+    base = 0
+    for piece in pieces_fn():
+        for s in range(0, piece.shape[0], step):
+            yield base + s, host_tensor(piece[s : s + step]).to(device)
+        base += piece.shape[0]
+
+
+def _quantize_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 quantisation of f32 rows on their device: (int8 rows,
+    f32 scales), bit-equal to the host fill's numpy arithmetic. scale =
+    max |v| / 127 in f32, at least 1e-12; q = v / scale rounded half to
+    even (``torch.round`` as ``np.rint``), clipped to +-127."""
+    amax = rows.abs().amax(dim=1)
+    # a tensor divisor: CUDA multiplies by the reciprocal of a host scalar,
+    # which can differ from numpy's division in the last bit
+    scale = torch.div(amax, torch.full_like(amax, 127.0)).clamp_(min=1e-12)
+    return torch.div(rows, scale[:, None]).round_().clamp_(-127, 127).to(torch.int8), scale
+
+
+class _RowStaging:
+    """The corpus in row order on the build's device, in the blocks' storage
+    dtype (int8 rows with their f32 scales): written chunk by chunk as the
+    assignment pass reads the rows, then scattered once into the
+    cluster-major blocks."""
+
+    QUANT_ROWS = 32_768  # rows quantised at a time: bounds the f32 temporaries
+
+    def __init__(self, n: int, d: int, dtype: torch.dtype, device):
+        self.rows = torch.empty((n, d), dtype=dtype, device=device)
+        self.scales = torch.empty(n, dtype=torch.float32, device=device) if dtype == torch.int8 else None
+
+    def write(self, off: int, chunk: torch.Tensor) -> torch.Tensor:
+        """Stage the f32 ``chunk`` as rows ``off`` onwards; returns those
+        staged rows."""
+        rows = self.rows[off : off + chunk.shape[0]]
+        if self.scales is None:
+            rows.copy_(chunk)
+            return rows
+        scales = self.scales[off : off + chunk.shape[0]]
+        for s in range(0, chunk.shape[0], self.QUANT_ROWS):
+            part = slice(s, s + self.QUANT_ROWS)
+            rows[part], scales[part] = _quantize_rows(chunk[part])
+        return rows
+
+
+def _assign_top2(pieces_fn, n: int, centroids: np.ndarray, device, step: int = 262_144, staging=None):
     """Streaming assignment pass: (assign, second) int32 arrays of size n.
 
     Every chunk is scored on ``device``: in bf16 on CUDA (as the reference
     does on a TPU), in f32 on the CPU. The (step, 2) result of chunk i is
     read back only after chunk i+1 has been dispatched, so the host read
-    and copy of chunk i+1 overlap the device's work on chunk i."""
+    and copy of chunk i+1 overlap the device's work on chunk i. With a
+    :class:`_RowStaging`, each chunk is also staged on the device; staged
+    rows in the scoring dtype are what is scored."""
     device = torch.device(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     assign = np.empty(n, np.int32)
@@ -304,16 +356,15 @@ def _assign_top2(pieces_fn, n: int, centroids: np.ndarray, device, step: int = 2
         second[off : off + length] = host[:, 1]
 
     pending = None  # (offset, length, in-flight device result)
-    base = 0
     with torch.inference_mode():
-        for piece in pieces_fn():
-            for s in range(0, piece.shape[0], step):
-                chunk = host_tensor(piece[s : s + step]).to(device).to(dtype)
-                idx2 = _top2(chunk, cent)
-                if pending is not None:
-                    harvest(pending)
-                pending = (base + s, chunk.shape[0], idx2)
-            base += piece.shape[0]
+        for off, chunk in _device_chunks(pieces_fn, device, step):
+            rows = chunk if staging is None else staging.write(off, chunk)
+            scored = rows if rows.dtype == dtype else chunk.to(dtype)
+            del chunk, rows  # the f32 chunk is not held while it is scored
+            idx2 = _top2(scored, cent)
+            if pending is not None:
+                harvest(pending)
+            pending = (off, scored.shape[0], idx2)
         if pending is not None:
             harvest(pending)
     return assign, second
@@ -326,7 +377,8 @@ def _place_rows(
 
     Round 1 packs every row into its best cluster (stable order); overflow
     spills to the second-best; rows that overflow BOTH are returned for the
-    capacity-aware round (they need vectors, which the fill pass collects).
+    capacity-aware round (they need their vectors, gathered by the fill
+    pass on the host or by :func:`_sample_rows` on the device path).
     Returns (cluster (n,) i32 with -1 = leftover, slot (n,) i32,
     fill (n_clusters,) i64, leftover row indices sorted ascending).
     """
@@ -416,6 +468,34 @@ def ivf_index_from_arrays(
     )
 
 
+def _spill(vecs: np.ndarray, centroids: np.ndarray, fill: np.ndarray, rows_per_cluster: int):
+    """The capacity-aware round: each leftover row (f32 ``vecs``, in row
+    order) into the best-scoring cluster that still has room after ``fill``.
+    Returns (cluster, slot) int64 arrays."""
+    scores = vecs @ centroids.T  # (L, k)
+    prefs = np.argsort(-scores, axis=1)
+    free = rows_per_cluster - fill
+    lc = np.full(len(vecs), -1, np.int64)
+    ls = np.full(len(vecs), -1, np.int64)
+    for i, row_prefs in enumerate(prefs):
+        for c in row_prefs:
+            if free[c] > 0:
+                lc[i] = c
+                ls[i] = rows_per_cluster - free[c]
+                free[c] -= 1
+                break
+    if (lc < 0).any():
+        # Only reachable with a caller-forced overflow below the >= 1.0
+        # capacity invariant; writing the -1s would scatter rows into
+        # the last cluster (a corrupt index), so refuse loudly.
+        raise ValueError(
+            f"IVF capacity exhausted: {int((lc < 0).sum())} of {len(vecs)} spilled rows "
+            f"found no cluster with free space (n_clusters * rows_per_cluster < n_rows; "
+            f"raise overflow/max_overflow)"
+        )
+    return lc, ls
+
+
 def build_ivf(
     emb,
     n_clusters: int = 128,
@@ -435,20 +515,25 @@ def build_ivf(
     ``emb`` is either an (N, D) float array or a zero-arg callable returning
     an iterator of row-contiguous f32 pieces (``VectorIndex.
     iter_matrix_pieces`` over mmap shards); pass ``n_rows``/``dim`` with the
-    callable. Pieces are read three times (sample, assignment, fill); the
-    only O(N) host allocations are the packed blocks in their storage dtype
-    (a torch bf16 or int8 tensor, copied to ``device`` once at the end) and
-    two int32 assignment vectors.
+    callable.
 
     ``overflow`` sizes rows_per_cluster to overflow x N/n_clusters, at least
     the 95th-percentile cluster, at most ``max_overflow`` x N/n_clusters,
     rounded up to 128; rows of over-full clusters spill into their
     second-best cluster, then into the best-scoring cluster with room.
 
+    The blocks are filled where they will live. With ``device_blocks`` (the
+    default) the assignment pass also stages every row on ``device`` in the
+    storage dtype (int8 rows quantised there), and one scatter puts them in
+    their (cluster, slot) places; the pieces are read twice (sample,
+    assignment), and once more for the rows of the capacity-aware spill if
+    there are any. Steps: sample, kmeans, assign, place, scatter.
+
     ``device_blocks=False`` leaves the blocks and scales in host memory
     (the k-means and assignment still run on ``device``): the mesh path
     hands them to :func:`shard_ivf`, and no single-device staging copy is
-    made.
+    made. A third pass over the pieces fills them on the host. Steps:
+    sample, kmeans, assign, place, fill, to_device.
     """
     device = torch.device(device)
     if callable(emb):
@@ -480,13 +565,17 @@ def build_ivf(
     seconds["kmeans"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    staging = _RowStaging(n, d, block_dtype, device) if device_blocks else None
     if n_clusters == 1:
         # top-2 selection needs >= 2 columns; with one cluster every row
         # (and its spill target) is cluster 0
         assign = np.zeros(n, np.int32)
         second = np.zeros(n, np.int32)
+        if staging is not None:
+            for off, chunk in _device_chunks(pieces_fn, device):
+                staging.write(off, chunk)
     else:
-        assign, second = _assign_top2(pieces_fn, n, centroids, device)
+        assign, second = _assign_top2(pieces_fn, n, centroids, device, staging=staging)
     seconds["assign"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -499,9 +588,67 @@ def build_ivf(
 
     cluster, slot, fill, leftover = _place_rows(assign, second, n_clusters, rows_per_cluster)
     del assign, second
+    if len(leftover):
+        logger.warning(
+            "IVF spilling %d rows capacity-aware (skewed clusters; overflow=%.1f cap=%.1f)",
+            len(leftover), overflow, max_overflow,
+        )
+    if staging is not None and len(leftover):
+        cluster[leftover], slot[leftover] = _spill(
+            _sample_rows(pieces_fn, n, d, leftover), centroids, fill, rows_per_cluster)
     seconds["place"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    shape = (n_clusters, rows_per_cluster)
+    if staging is not None:
+        blocks, scales, row_map = _scatter_on_device(staging, cluster, slot, shape, n)
+    else:
+        blocks, scales, row_map = _fill_on_host(pieces_fn, cluster, slot, fill, leftover, centroids, shape, d,
+                                                block_dtype)
+        seconds["fill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    index = IVFIndex(
+        centroids=torch.from_numpy(centroids).to(device), blocks=blocks, row_map=row_map, n_actual=n, scales=scales
+    )
+    seconds["scatter" if staging is not None else "to_device"] = time.perf_counter() - t0
+    index.build_seconds = seconds
+    logger.info(
+        "IVF built (%s): %d clusters x %d rows/cluster, %.1f%% padding waste (%.2f GiB blocks at %s); seconds %s",
+        f"blocks scattered on {device}" if device_blocks else "blocks filled on the host",
+        n_clusters, rows_per_cluster, 100 * index.padding_waste,
+        index.blocks.numel() * index.blocks.element_size() / 2**30, block_dtype,
+        {k: round(v, 3) for k, v in seconds.items()},
+    )
+    return index
+
+
+def _scatter_on_device(staging: _RowStaging, cluster: np.ndarray, slot: np.ndarray, shape: tuple, n: int):
+    """(blocks, scales, row_map): one scatter of the staged rows (and
+    scales) into zeroed cluster-major blocks on the staging's device, at
+    ``cluster * rpc + slot``; padding rows keep scale 1. Frees the staging
+    and waits for the device, so the build's seconds hold the scatter."""
+    rows = staging.rows
+    dest = cluster.astype(np.int64) * shape[1] + slot
+    dest_t = torch.from_numpy(dest).to(rows.device)
+    blocks = torch.zeros(shape + (rows.shape[1],), dtype=rows.dtype, device=rows.device)
+    blocks.view(-1, rows.shape[1]).index_copy_(0, dest_t, rows)
+    scales = None
+    if staging.scales is not None:
+        scales = torch.ones(shape, dtype=torch.float32, device=rows.device)
+        scales.view(-1).index_copy_(0, dest_t, staging.scales)
+    staging.rows = staging.scales = rows = None
+    row_map = np.full(shape, -1, np.int64)
+    row_map.reshape(-1)[dest] = np.arange(n)
+    if blocks.is_cuda:
+        torch.cuda.synchronize(blocks.device)
+    return blocks, scales, row_map
+
+
+def _fill_on_host(pieces_fn, cluster, slot, fill, leftover, centroids, shape: tuple, d: int, block_dtype):
+    """(blocks, scales, row_map) in host memory: a third pass over the
+    pieces writes each placed row, cast (or quantised per row) on the host,
+    then the leftover rows after the capacity-aware spill."""
+    n_clusters, rows_per_cluster = shape
     quantized = block_dtype == torch.int8
     blocks = torch.zeros((n_clusters, rows_per_cluster, d), dtype=block_dtype)
     row_map = np.full((n_clusters, rows_per_cluster), -1, np.int64)
@@ -521,11 +668,6 @@ def build_ivf(
             blocks[ci, si] = torch.from_numpy(vecs).to(block_dtype)
         row_map[c, s] = gids
 
-    if len(leftover):
-        logger.warning(
-            "IVF spilling %d rows capacity-aware (skewed clusters; overflow=%.1f cap=%.1f)",
-            len(leftover), overflow, max_overflow,
-        )
     base = 0
     for piece in pieces_fn():  # fill pass
         piece = np.asarray(piece, np.float32)
@@ -538,51 +680,11 @@ def build_ivf(
         if hi > lo:
             leftover_vecs[lo:hi] = piece[leftover[lo:hi] - base]
         base += piece.shape[0]
-    del cluster, slot
 
     if len(leftover):
-        scores = leftover_vecs @ centroids.T  # (L, k)
-        prefs = np.argsort(-scores, axis=1)
-        free = rows_per_cluster - fill
-        lc = np.full(len(leftover), -1, np.int64)
-        ls = np.full(len(leftover), -1, np.int64)
-        for i, row_prefs in enumerate(prefs):
-            for c in row_prefs:
-                if free[c] > 0:
-                    lc[i] = c
-                    ls[i] = rows_per_cluster - free[c]
-                    free[c] -= 1
-                    break
-        if (lc < 0).any():
-            # Only reachable with a caller-forced overflow below the >= 1.0
-            # capacity invariant; writing the -1s would scatter rows into
-            # the last cluster (a corrupt index), so refuse loudly.
-            raise ValueError(
-                f"IVF capacity exhausted: {int((lc < 0).sum())} of {len(leftover)} spilled rows "
-                f"found no cluster with free space (n_clusters * rows_per_cluster < n_rows; "
-                f"raise overflow/max_overflow)"
-            )
+        lc, ls = _spill(leftover_vecs, centroids, fill, rows_per_cluster)
         write_rows(lc, ls, leftover_vecs, leftover)
-    seconds["fill"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    blocks_at = device if device_blocks else torch.device("cpu")
-    index = IVFIndex(
-        centroids=torch.from_numpy(centroids).to(device),
-        blocks=blocks.to(blocks_at),
-        row_map=row_map,
-        n_actual=n,
-        scales=torch.from_numpy(scales_np).to(blocks_at) if quantized else None,
-    )
-    seconds["to_device"] = time.perf_counter() - t0
-    index.build_seconds = seconds
-    logger.info(
-        "IVF built: %d clusters x %d rows/cluster, %.1f%% padding waste (%.2f GiB blocks at %s); seconds %s",
-        n_clusters, rows_per_cluster, 100 * index.padding_waste,
-        blocks.numel() * blocks.element_size() / 2**30, block_dtype,
-        {k: round(v, 3) for k, v in seconds.items()},
-    )
-    return index
+    return blocks, torch.from_numpy(scales_np) if quantized else None, row_map
 
 
 # -- search --------------------------------------------------------------------

@@ -8,7 +8,8 @@ on the host (f32, ``default_rng(5)``), then each step of the build alone
 under the reference's stage names (the sample gather, the k-means fit on
 the card, the top-2 assignment on the card, the host's row placement), then
 the whole ``build_ivf``, whose ``build_seconds`` (sample, kmeans, assign,
-place, fill, to_device) are reported beside them.
+place, scatter: its blocks are staged on the card by the assignment pass and
+scattered there once) are reported beside them.
 
 :func:`run` takes the corpus from its caller (``make_corpus``, a
 zero-argument callable, timed as the corpus stage) and returns the full

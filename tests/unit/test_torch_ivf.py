@@ -17,7 +17,9 @@ reference's (tensortruth_tpu/ops/ivf.py), on the CPU.
   draw them from different generators, so one seed clusters differently).
 * ``ivf_search`` over an index carried across with ``ivf_index_from_arrays``:
   the same row ids, scores within 1e-5, also for k > nprobe * rpc.
-* The port's own ``build_ivf`` keeps the reference tests' invariants.
+* The port's own ``build_ivf`` keeps the reference tests' invariants, and
+  its device path (rows staged by the assignment pass, one scatter) gives
+  the host fill's blocks, scales and row_map bit for bit.
 * The IVF tier of the engine, through ``load_engine_for_modules``, returns
   the reference's node ids and gate decision.
 
@@ -200,7 +202,7 @@ def test_build_ivf_matches_reference_from_shared_seed_rows(monkeypatch, block_dt
     np.testing.assert_allclose(got.centroids.numpy(), np.asarray(want.centroids), atol=1e-5, rtol=0)
     if block_dtype == "int8":
         np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
-    assert set(got.build_seconds) == {"sample", "kmeans", "assign", "place", "fill", "to_device"}
+    assert list(got.build_seconds) == ["sample", "kmeans", "assign", "place", "scatter"]
 
 
 # -- the port's build_ivf on its own (the reference tests' invariants) ----------
@@ -239,13 +241,20 @@ def test_build_is_seed_deterministic():
     assert torch.equal(a.centroids, b.centroids) and not torch.equal(a.centroids, c.centroids)
 
 
-def test_padding_waste_capped_on_skewed_clusters():
+def _skewed_corpus():
+    """4,000 rows around 8 centres weighted 1/rank: 32 clusters of which the
+    largest overflow both their best and second choice, so rows spill
+    capacity-aware."""
     rng = np.random.default_rng(7)
     centers = rng.standard_normal((8, 32)).astype(np.float32) * 3
     weights = 1.0 / np.arange(1, 9)
     which = rng.choice(8, 4000, p=weights / weights.sum())
     emb = centers[which] + 0.3 * rng.standard_normal((4000, 32)).astype(np.float32)
-    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    return emb / np.linalg.norm(emb, axis=1, keepdims=True)
+
+
+def test_padding_waste_capped_on_skewed_clusters():
+    emb = _skewed_corpus()
     index = port.build_ivf(emb, n_clusters=32, sample_size=4000, max_overflow=4.0, device="cpu")
     assert index.rows_per_cluster <= -(-int(np.ceil(4000 / 32 * 4.0)) // 128) * 128
     assert 0.0 <= index.padding_waste < 1.0
@@ -267,6 +276,63 @@ def test_single_cluster_and_streaming_pieces():
     assert index.n_clusters == 1 and (rows[:, 0] == np.arange(3)).all()
     with pytest.raises(ValueError, match="n_rows and dim"):
         port.build_ivf(lambda: iter([emb]), device="cpu")
+
+
+def _pieces(emb, cuts):
+    return lambda: iter(np.split(emb, cuts))
+
+
+SCATTER_CASES = {
+    "array": lambda: (_corpus(np.random.default_rng(11), 3000, 32), dict(n_clusters=12, sample_size=3000)),
+    "pieces": lambda: (_pieces(_corpus(np.random.default_rng(12), 3000, 32), [1100, 2048]),
+                       dict(n_clusters=12, sample_size=2000, n_rows=3000, dim=32)),
+    "skewed": lambda: (_skewed_corpus(), dict(n_clusters=32, sample_size=4000, max_overflow=4.0)),
+    "one_cluster": lambda: (_pieces(_corpus(np.random.default_rng(13), 300, 16), [120]),
+                            dict(n_clusters=1, sample_size=300, n_rows=300, dim=16)),
+}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("block_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_device_scatter_equals_host_fill(monkeypatch, caplog, case, block_dtype):
+    """The blocks staged by the assignment pass and scattered once on the
+    build's device (here the CPU) against the host fill
+    (``device_blocks=False``): blocks, scales and row_map bit for bit, over
+    an array, streaming pieces, a skewed corpus whose rows spill
+    capacity-aware, and one cluster (no assignment pass)."""
+    monkeypatch.setattr(port._RowStaging, "QUANT_ROWS", 256)  # several quantised parts per chunk
+    emb, kw = SCATTER_CASES[case]()
+    kw.update(kmeans_iters=3, seed=0, block_dtype=getattr(torch, block_dtype), device="cpu")
+    with caplog.at_level("WARNING", logger=port.__name__):
+        dev = port.build_ivf(emb, **kw)
+    host = port.build_ivf(emb, device_blocks=False, **kw)
+    assert list(dev.build_seconds) == ["sample", "kmeans", "assign", "place", "scatter"]
+    assert list(host.build_seconds) == ["sample", "kmeans", "assign", "place", "fill", "to_device"]
+    assert ("capacity-aware" in caplog.text) == (case == "skewed")
+    assert (dev.n_clusters == 1) == (case == "one_cluster")
+    assert dev.blocks.dtype == host.blocks.dtype == getattr(torch, block_dtype)
+    assert torch.equal(_bits(dev.blocks), _bits(host.blocks))
+    np.testing.assert_array_equal(dev.row_map, host.row_map)
+    assert (dev.scales is None) == (host.scales is None) == (block_dtype != "int8")
+    if dev.scales is not None:
+        assert torch.equal(_bits(dev.scales), _bits(host.scales))
+
+
+def test_quantize_rows_rounds_like_the_host_fill():
+    """Ties round half to even, a zero row takes the 1e-12 scale, and random
+    rows give the host fill's numpy bits."""
+    rows = np.array([[127.0, 2.5, -3.5, 0.5], [0.0, 0.0, 0.0, 0.0], [-1.0, 0.25, 1e-3, 0.75]], np.float32)
+    rows = np.concatenate([rows, np.random.default_rng(14).standard_normal((500, 4)).astype(np.float32)])
+    q, scale = port._quantize_rows(torch.from_numpy(rows))
+    want_scale = np.maximum(np.abs(rows).max(axis=1) / 127.0, 1e-12).astype(np.float32)
+    want_q = np.clip(np.rint(rows / want_scale[:, None]), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(q.numpy(), want_q)
+    np.testing.assert_array_equal(scale.numpy().view(np.int32), want_scale.view(np.int32))
+    assert q[0].tolist() == [127, 2, -4, 0] and scale[1].item() == np.float32(1e-12)
 
 
 def test_int8_blocks_self_retrieval():

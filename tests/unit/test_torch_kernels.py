@@ -450,6 +450,43 @@ def test_sharded_ivf_kernels_match_plain_on_a_repeated_device_mesh(gen, int8):
     assert (ids[:, 0] == np.arange(32)).mean() >= 0.9  # rows as queries find themselves
 
 
+@pytest.mark.parametrize("block_dtype", [torch.bfloat16, torch.int8])
+def test_build_ivf_device_scatter_equals_host_fill(gen, block_dtype):
+    """262,144 x 1024 f32 rows, 256 clusters: the blocks staged by the
+    assignment pass and scattered once on the card equal the host fill
+    (``device_blocks=False``) bit for bit, blocks, scales and row_map; the
+    build's peak device memory stays within the blocks, the staging and one
+    f32 assignment chunk, plus 10%."""
+    n, d, nc, chunk = 262_144, 1024, 256, 262_144
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    rows = (x / x.norm(dim=1, keepdim=True)).cpu().numpy()
+    del x
+    kw = dict(n_clusters=nc, sample_size=65_536, kmeans_iters=3, seed=0, block_dtype=block_dtype, device="cuda")
+    host = build_ivf(rows, device_blocks=False, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dev = build_ivf(rows, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert list(dev.build_seconds) == ["sample", "kmeans", "assign", "place", "scatter"]
+    assert torch.equal(dev.centroids.cpu(), host.centroids.cpu())
+    np.testing.assert_array_equal(dev.row_map, host.row_map)
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    assert torch.equal(dev.blocks.cpu().view(bits[dev.blocks.element_size()]),
+                       host.blocks.view(bits[host.blocks.element_size()]))
+    staging = n * d * dev.blocks.element_size()
+    if block_dtype == torch.int8:
+        assert torch.equal(dev.scales.cpu().view(torch.int32), host.scales.view(torch.int32))
+        staging += n * 4
+    blocks = dev.blocks.numel() * dev.blocks.element_size()
+    budget = 1.1 * (blocks + staging + chunk * d * 4)
+    print(json.dumps({"ivf_build": str(block_dtype), "peak_bytes": peak, "budget_bytes": int(budget),
+                      "device_seconds": dev.build_seconds, "host_seconds": host.build_seconds}))
+    assert peak <= budget, (peak, budget)
+
+
 def test_reranker_launches_its_groups_without_a_stream_sync(gen):
     """Four groups (two sequence buckets, each cut into two batch buckets):
     score_pairs_async queues them all without a cudaStreamSynchronize, and
