@@ -1,6 +1,7 @@
-"""The benchmark's own arithmetic: percentiles, operation and byte counts,
-rooflines and shares of the peak. Counted from logical shapes, so a number
-reads the same whatever implements the work.
+"""The benchmark's own arithmetic: percentiles, the search's operation and
+byte counts, rooflines and shares of the peak. Counted from logical shapes,
+so a number reads the same whatever implements the work. A model's forward
+operations are its family's count (``families/<name>.py``).
 """
 
 from __future__ import annotations
@@ -14,22 +15,6 @@ def percentile(values: list[float], p: float) -> float:
     """Nearest-rank percentile over all values (no interpolation)."""
     s = sorted(values)
     return s[max(0, math.ceil(p / 100.0 * len(s)) - 1)]
-
-
-def encoder_flops(m: dict, seq_lens) -> float:
-    """Forward operations of an XLM-R encoder over sequences of the given
-    real (unpadded) lengths: per layer and token the four projections
-    (8 H^2) and the two FFN products (4 H I), per layer and sequence the
-    scores and context products (4 S^2 H); a classification head adds
-    2 H^2 + 2 H labels per sequence."""
-    h, i, layers = m["hidden_size"], m["intermediate_size"], m["num_hidden_layers"]
-    per_token = layers * (8 * h * h + 4 * h * i)
-    total = 0.0
-    for s in seq_lens:
-        total += s * per_token + layers * 4 * s * s * h
-    if m.get("num_labels"):
-        total += len(seq_lens) * (2 * h * h + 2 * h * m["num_labels"])
-    return total
 
 
 def mfu_pct(flops: float, seconds: float) -> float | None:

@@ -17,28 +17,26 @@ from types import SimpleNamespace
 from . import arith, check, serve, trace, traffic
 from .common import BENCH_DIR, CACHE, Cell, set_cache_env
 from .corpus import Texts, ensure_corpus
+from .families import family
 from .load import Load, message, sleep_until
 from .probe import Probe
 from .weights import make_weights, role_seed
 
 DRAIN_S = 60.0
 SAMPLE = 48
-# The port's test models; weights wider than N(0, 0.02) so that scores of
-# different passages differ at this width as they do at full width.
-TINY_MODEL = {"vocab_size": 512, "hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
-              "intermediate_size": 128, "max_position_embeddings": 130, "init_std": 0.2}
 
 
 def tiny_config(config: dict) -> dict:
     """The configuration at the port's test sizes, for a rehearsal on the
-    CPU: the tiny embedder and reranker, a few thousand leaves, and an IVF
-    threshold under them where the configuration's tier is IVF."""
+    CPU: each role's tiny model (its family's ``TINY``), a few thousand
+    leaves as wide as the tiny embedder, and an IVF threshold under them
+    where the configuration's tier is IVF."""
     c = copy.deepcopy(config)
-    c["embedder"].update(TINY_MODEL, model_id="tiny-embedder")
-    c["reranker"].update(TINY_MODEL, model_id="tiny-reranker")
+    for role in ("embedder", "reranker"):
+        c[role].update(family(config[role]).TINY[role])
     ivf = config["n_leaves"] >= config["serving"]["engine_ivf_threshold"]
     c["n_leaves"] = c["corpus"]["n_leaves"] = 8192 if ivf else 4096
-    c["corpus"]["dim"] = TINY_MODEL["hidden_size"]
+    c["corpus"]["dim"] = c["embedder"]["hidden_size"]
     if ivf:
         c["serving"].update(engine_ivf_threshold=4096, engine_ivf_clusters=64, engine_ivf_nprobe=8)
     return c
@@ -51,28 +49,21 @@ def is_ivf(config: dict) -> bool:
 def seat_weights(config: dict, seed: int) -> None:
     """The program loads a model without a checkpoint through
     ``Embedder.random_init`` / ``Reranker.random_init``; these give it the
-    benchmark's weights instead (drawn from ``seed``), converted by the
-    program's own Hugging Face loader. The architecture the program serves
-    must be the configuration's."""
-    from tensortruth_tpu_torch.models.convert import state_dict_from_hf
+    benchmark's weights instead (drawn from ``seed``), seated by the role's
+    family through the program's own loader. The architecture the program
+    serves must be the configuration's."""
     from tensortruth_tpu_torch.models.embedder import Embedder
     from tensortruth_tpu_torch.models.reranker import Reranker
-    from tensortruth_tpu_torch.models.xlmr import XLMRModel
 
     def make(role: str):
         m = config[role]
+        fam = family(m)
 
         def random_init(cls, cfg, tokenizer, device, dtype=None, seed_=0, **kw):
-            want = (m["vocab_size"], m["hidden_size"], m["num_hidden_layers"], m["num_attention_heads"],
-                    m["intermediate_size"], m["max_position_embeddings"], m["num_labels"])
-            got = (cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.intermediate_size,
-                   cfg.max_position, cfg.num_labels)
-            if want != got:
-                raise RuntimeError(f"the program serves {role} {got}, the configuration states {want}")
+            fam.check_program(m, role, cfg)
             hf = make_weights(m, role_seed(seed, role), device)
-            sd = state_dict_from_hf(hf, num_layers=cfg.num_layers, num_labels=cfg.num_labels)
-            model = XLMRModel.from_state_dict(cfg, sd, device=device, dtype=dtype)
-            del hf, sd
+            model = fam.program_model(cfg, hf, device, dtype)
+            del hf
             return cls(model, tokenizer, **kw)
         return classmethod(random_init)
 

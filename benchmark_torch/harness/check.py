@@ -45,6 +45,7 @@ from dataclasses import dataclass, field
 
 from .common import BENCH_DIR
 from .corpus import Texts, rows_on_device
+from .families import family
 from .weights import make_weights, role_seed
 
 
@@ -57,12 +58,19 @@ class Record:
     candidates: list | None = None  # [(node id, dot)] handed to the reranker
 
 
-def load_reference(config: dict):
-    path = BENCH_DIR / "configs" / f"{config['reference']}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_reference_{config['reference']}", path)
+def load_module(name: str):
+    """The plain reference file ``configs/<name>.py``."""
+    path = BENCH_DIR / "configs" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"bench_reference_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reference(config: dict):
+    """The configuration's reference file: its tokenizer (``n_tokens``),
+    ``search_dots`` and ``fp32_mode``."""
+    return load_module(config["reference"])
 
 
 def sample(records: list[Record], seed: int, n: int, n_tokens) -> list[Record]:
@@ -78,7 +86,8 @@ def sample(records: list[Record], seed: int, n: int, n_tokens) -> list[Record]:
 
 class Reference:
     """The configuration's reference at one precision, its weights rebuilt
-    from the run's seed."""
+    from the run's seed: for each role, the class its family's ``REFERENCE``
+    names, in the reference file it names."""
 
     def __init__(self, config: dict, seed: int, device, precision: str = "fp32"):
         import torch
@@ -87,10 +96,14 @@ class Reference:
         self.ref.fp32_mode()
         self.config, self.device, self.precision = config, device, precision
         self.texts = Texts(config["corpus"])
-        self.emb = self.ref.XLMR(config["embedder"], make_weights(
-            config["embedder"], role_seed(seed, "embedder"), device, torch.float32), precision)
-        self.rr = self.ref.XLMR(config["reranker"], make_weights(
-            config["reranker"], role_seed(seed, "reranker"), device, torch.float32), precision)
+
+        def model(role: str):
+            m = config[role]
+            file, name = family(m).REFERENCE
+            cls = getattr(self.ref if file == config["reference"] else load_module(file), name)
+            return cls(m, make_weights(m, role_seed(seed, role), device, torch.float32), precision)
+
+        self.emb, self.rr = model("embedder"), model("reranker")
 
     def embed(self, texts):
         import torch

@@ -4,8 +4,9 @@ they are divided by."""
 
 from __future__ import annotations
 
-from .arith import encoder_flops, mfu_pct
+from .arith import mfu_pct
 from .check import load_reference
+from .families import family
 
 
 def mean_batch(ctx):
@@ -44,24 +45,18 @@ def idle_pct(ctx):
     return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
 
 
-def seq_len(n_a: int, n_b: int | None, max_length: int) -> int:
-    """Tokens of <s> a </s> or <s> a </s></s> b </s> as the tokenizer cuts
-    them to ``max_length`` (the query given up to half)."""
-    if n_b is None:
-        return min(n_a, max_length - 2) + 2
-    a = min(n_a, max(1, (max_length - 4) // 2))
-    return min(max_length, a + min(n_b, max_length - 4 - a) + 4)
-
-
 def serve_flops(ctx) -> float:
-    """Encoder operations of the query embeds and rerank pairs dispatched
-    while the trace ran, over their unpadded token counts."""
+    """Forward operations of the query embeds and rerank pairs dispatched
+    while the trace ran, over their unpadded token counts, each role by its
+    family's count and token template."""
     n_tokens = load_reference(ctx.config).n_tokens
     emb, rr = ctx.config["embedder"], ctx.config["reranker"]
-    q_lens = [seq_len(n_tokens(q), None, emb["max_length"]) for _, qs in in_window(ctx, ctx.probe.queries) for q in qs]
-    p_lens = [seq_len(n_tokens(a), n_tokens(b), rr["max_length"])
+    f_emb, f_rr = family(emb), family(rr)
+    q_lens = [f_emb.seq_len(n_tokens(q), None, emb["max_length"])
+              for _, qs in in_window(ctx, ctx.probe.queries) for q in qs]
+    p_lens = [f_rr.seq_len(n_tokens(a), n_tokens(b), rr["max_length"])
               for _, pairs in in_window(ctx, ctx.probe.reranks) for a, b in pairs]
-    return encoder_flops(emb, q_lens) + encoder_flops(rr, p_lens)
+    return f_emb.flops(emb, q_lens) + f_rr.flops(rr, p_lens)
 
 
 def mfu(ctx):

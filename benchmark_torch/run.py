@@ -15,6 +15,11 @@ the last lines of standard error.
 
 ``--tiny`` rehearses the cell on the CPU at the port's test sizes (tiny
 models, a few thousand leaves); it is never a measurement.
+
+Once the window has closed and the reference has judged it, a run that
+finds JAX or the JAX package loaded in its process (``FORBIDDEN``, by whole
+top-level name: the port ``tensortruth_tpu_torch`` is not one) names it on
+standard error and exits non-zero with no result.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ except ImportError:  # the process's first line is the next best start
     T_START = time.time()
 
 ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "tensortruth_tpu")
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
@@ -45,6 +51,11 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--tiny", action="store_true", help="CPU rehearsal at test sizes (no measurement)")
     return ap.parse_args(argv)
+
+
+def forbidden_modules() -> list[str]:
+    """The loaded modules whose top-level name is one of ``FORBIDDEN``."""
+    return sorted(name for name in list(sys.modules) if name.split(".")[0] in FORBIDDEN)
 
 
 def main(argv=None) -> int:
@@ -63,6 +74,12 @@ def main(argv=None) -> int:
                   f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
             return 3
     result = chat.run(cell, args.seed, args.seconds, bool(args.trace), T_START, tiny=args.tiny)
+    found = forbidden_modules()
+    if found:
+        tops = sorted({name.split(".")[0] for name in found})
+        print(f"no result: the process has loaded {', '.join(tops)} ({len(found)} modules: {', '.join(found[:8])})",
+              file=sys.stderr, flush=True)
+        return 4
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
     return 0

@@ -59,16 +59,16 @@ def window(sv, spec, seed, seconds):
 def reseat(sv, seed: int) -> None:
     """The resident models' weights replaced in place by ``seed``'s."""
     import torch
-    from tensortruth_tpu_torch.models.convert import state_dict_from_hf
 
+    from benchmark_torch.harness.families import family
     from benchmark_torch.harness.weights import make_weights, role_seed
 
     engine = sv.rag.engine
     for role, runtime in (("embedder", engine.embedder), ("reranker", engine.reranker)):
-        cfg = runtime.model.cfg
-        hf = make_weights(sv.config[role], role_seed(seed, role), sv.device)
+        m = sv.config[role]
+        hf = make_weights(m, role_seed(seed, role), sv.device)
         with torch.no_grad():
-            runtime.model.load_state_dict(state_dict_from_hf(hf, cfg.num_layers, cfg.num_labels), strict=True)
+            runtime.model.load_state_dict(family(m).program_state(runtime.model.cfg, hf), strict=True)
 
 
 def drive(sv, spec, args) -> None:
