@@ -132,18 +132,22 @@ def _compile(target: Path) -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, compiled first if its sources changed."""
+    """The kernel library, compiled first if its sources changed. The first
+    load is set-up phase ``kernels`` of ``utils/profiling.py``'s ``SETUP``."""
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not path.exists():
-                _compile(path)
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            from tensortruth_tpu_torch.utils import profiling
+
+            with profiling.SETUP.phase("kernels"):
+                path = library_path()
+                if not path.exists():
+                    _compile(path)
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -20,6 +20,7 @@ from tensortruth_tpu_torch.models.manager import ModelManager, ModelSpec
 from tensortruth_tpu_torch.parallel.mesh import make_mesh
 from tensortruth_tpu_torch.pipeline import QueryPipeline
 from tensortruth_tpu_torch.retrieval.engine import MultiIndexEngine
+from tensortruth_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -45,6 +46,16 @@ def adaptive_top_k(reranker_top_n: int) -> int:
     return max(5, reranker_top_n * 2)
 
 
+def _read_index(path: Path) -> VectorIndex:
+    """``VectorIndex.load`` as set-up phase ``index_read``, counting the
+    index's rows and nodes."""
+    with profiling.SETUP.phase("index_read"):
+        index = VectorIndex.load(path)
+    profiling.SETUP.add(index_read_rows=index.n_rows, index_read_nodes=len(index.store))
+    return index
+
+
+@profiling.setup_phase("engine")
 def load_engine_for_modules(
     modules: list[str],
     params: dict | None = None,
@@ -60,7 +71,8 @@ def load_engine_for_modules(
     ``extra_index_paths`` are session/project document indexes (absolute
     VectorIndex dirs) attached beside catalog modules. ``rag.mesh.enabled``
     builds a mesh of the configured shape over every CUDA card when no
-    ``mesh`` is passed."""
+    ``mesh`` is passed. Each call is set-up phase ``engine`` of the
+    process's ``profiling.SETUP``."""
     from tensortruth_tpu_torch.app.config import load_config
     from tensortruth_tpu_torch.app.paths import get_base_indexes_dir
 
@@ -85,7 +97,7 @@ def load_engine_for_modules(
             logger.warning("module index not found, skipping: %s", module)
             continue
         try:  # per-module failure isolation
-            indexes[module] = VectorIndex.load(path)
+            indexes[module] = _read_index(path)
         except Exception as e:
             logger.error("module index %s unreadable (%s), skipping: %s", module, type(e).__name__, e)
             continue
@@ -96,7 +108,7 @@ def load_engine_for_modules(
             # "{scope dir}/index": every scope's index dir is named "index"
             name = f"{p.parent.name}/{p.name}"
             try:
-                indexes[name] = VectorIndex.load(p)
+                indexes[name] = _read_index(p)
             except Exception as e:
                 logger.error("document index %s unreadable, skipping: %s", p, e)
 

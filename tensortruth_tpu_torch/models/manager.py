@@ -28,6 +28,7 @@ from pathlib import Path
 import torch
 
 from tensortruth_tpu_torch.tokenization import load_tokenizer
+from tensortruth_tpu_torch.utils import profiling
 from tensortruth_tpu_torch.models.embedder import Embedder
 from tensortruth_tpu_torch.models.reranker import Reranker
 from tensortruth_tpu_torch.models.xlmr import (
@@ -231,33 +232,44 @@ class ModelManager:
 
     def _load(self, spec: ModelSpec, device, role: str, mesh=None):
         """Build an Embedder or Reranker for ``spec`` on ``device`` (a mesh's
-        lead device, the runtime replicating it over ``mesh``)."""
-        if role == "embedder":
-            cfg = self._resolve_arch(spec, _EMBEDDER_ARCHS, BGE_M3_CONFIG, 0)
-            runtime = Embedder
-        else:
-            cfg = self._resolve_arch(spec, _RERANKER_ARCHS, BGE_RERANKER_V2_M3_CONFIG, 1)
-            runtime = Reranker
-        spec = _clamp_max_length(spec, cfg)
-        dtype = getattr(torch, spec.dtype)
-        if spec.tokenizer_path is None and not spec.model_id.startswith("tiny-"):
-            logger.warning(
-                "%s %s: no tokenizer.json found — using the hash-based "
-                "SimpleTokenizer; scores will not match the real model",
-                role, spec.model_id,
+        lead device, the runtime replicating it over ``mesh``), as set-up
+        phase ``models`` of ``profiling.SETUP``, which also keeps each role's
+        ``<role>_s`` and its parts ``<role>_tokenizer_s`` and
+        ``<role>_weights_s`` (the checkpoint read or the weights drawn, and
+        the runtime seated on the device)."""
+        setup = profiling.SETUP
+        clock = setup.clock
+        with setup.phase("model", "models"):
+            t0 = clock()
+            if role == "embedder":
+                cfg = self._resolve_arch(spec, _EMBEDDER_ARCHS, BGE_M3_CONFIG, 0)
+                runtime = Embedder
+            else:
+                cfg = self._resolve_arch(spec, _RERANKER_ARCHS, BGE_RERANKER_V2_M3_CONFIG, 1)
+                runtime = Reranker
+            spec = _clamp_max_length(spec, cfg)
+            dtype = getattr(torch, spec.dtype)
+            if spec.tokenizer_path is None and not spec.model_id.startswith("tiny-"):
+                logger.warning(
+                    "%s %s: no tokenizer.json found — using the hash-based "
+                    "SimpleTokenizer; scores will not match the real model",
+                    role, spec.model_id,
+                )
+            tokenizer = load_tokenizer(
+                spec.tokenizer_path, sep_style="bert" if cfg.position_style == "bert" else "xlmr"
             )
-        tokenizer = load_tokenizer(
-            spec.tokenizer_path, sep_style="bert" if cfg.position_style == "bert" else "xlmr"
-        )
-        kw = dict(max_length=spec.max_length, mesh=mesh, **spec.bucket_kwargs())
-        if spec.local_dir:
-            from tensortruth_tpu_torch.models.convert import load_local_checkpoint
+            t1 = clock()
+            kw = dict(max_length=spec.max_length, mesh=mesh, **spec.bucket_kwargs())
+            if spec.local_dir:
+                from tensortruth_tpu_torch.models.convert import load_local_checkpoint
 
-            model = runtime(load_local_checkpoint(spec.local_dir, cfg, device, dtype), tokenizer, **kw)
-        else:
-            logger.warning("no local checkpoint for %s — using random-init weights", spec.model_id)
-            model = runtime.random_init(cfg, tokenizer, device, dtype=dtype, **kw)
-        model.model_id = spec.model_id
+                model = runtime(load_local_checkpoint(spec.local_dir, cfg, device, dtype), tokenizer, **kw)
+            else:
+                logger.warning("no local checkpoint for %s — using random-init weights", spec.model_id)
+                model = runtime.random_init(cfg, tokenizer, device, dtype=dtype, **kw)
+            model.model_id = spec.model_id
+            t2 = clock()
+            setup.add(**{f"{role}_s": t2 - t0, f"{role}_tokenizer_s": t1 - t0, f"{role}_weights_s": t2 - t1})
         return model
 
     @staticmethod

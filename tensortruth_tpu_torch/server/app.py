@@ -88,8 +88,18 @@ async def error_middleware(request: web.Request, handler):
 def create_app(data_dir: str | Path | None = None, config=None, device="cuda") -> web.Application:
     """The app on ``device``: models and engines load there (``cuda`` unless
     the caller asks for the CPU)."""
+    from tensortruth_tpu_torch.utils import profiling
+
+    @web.middleware
+    async def served_time(request: web.Request, handler):
+        """A session create is served time on the set-up account's clock."""
+        if request.method == "POST" and request.path == "/api/sessions":
+            with profiling.SETUP.serving("sessions"):
+                return await handler(request)
+        return await handler(request)
+
     app = web.Application(
-        middlewares=[cors_middleware, error_middleware, path_param_middleware],
+        middlewares=[served_time, cors_middleware, error_middleware, path_param_middleware],
         client_max_size=256 * 2**20,  # uploads
     )
     services = ServiceContainer(data_dir=data_dir, config=config, device=device)

@@ -239,8 +239,9 @@ async def ws_chat(request: web.Request):
     # short pong deadline hard-closes the socket mid-stream. 300s survives
     # any compile while still reaping half-open peers, which with NO
     # heartbeat would leak a handler task + session state until restart.
-    ws = web.WebSocketResponse(heartbeat=300)
-    await ws.prepare(request)
+    with profiling.SETUP.serving():  # served time until prepare returns
+        ws = web.WebSocketResponse(heartbeat=300)
+        await ws.prepare(request)
 
     # Frames that arrived while a message was being processed, in arrival
     # order (the reference's async-for loop gets this buffering from the
@@ -251,8 +252,9 @@ async def ws_chat(request: web.Request):
         if msg.type != WSMsgType.TEXT:
             break
         rid = profiling.next_id()
-        # The message's spans carry its id; tt.ws.message ends at its sources frame.
-        with profiling.span("ws.message", rid) as message:
+        # The message's spans carry its id; tt.ws.message ends at its sources frame. The
+        # message is served time until its handling ends.
+        with profiling.SETUP.serving("messages"), profiling.span("ws.message", rid) as message:
             try:
                 data = json.loads(msg.data)
             except json.JSONDecodeError:

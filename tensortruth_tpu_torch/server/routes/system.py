@@ -214,17 +214,25 @@ async def llama_cpp_unload(request: web.Request):
 
 
 async def rag_status(request: web.Request):
-    """Loaded embedder/reranker + memory (reference system.py:325-360)."""
+    """Loaded embedder/reranker + memory (reference system.py:325-360), and
+    the set-up account."""
     from tensortruth_tpu_torch.models.manager import ModelManager
+    from tensortruth_tpu_torch.utils import profiling
 
     services = request.app["services"]
     status = ModelManager.get_instance().status()
     status["last_query_timings"] = services.rag_service.last_timings
     batcher = services.rag_service._batcher
+    # The set-up account (utils/profiling.py). The copy beside the batcher's
+    # counters is temporary: the benchmark's load process hands on only the
+    # ``batcher`` entry (ROADMAP E9 removes the copy once it hands on the
+    # whole status). With batching off ``batcher`` is None: only ``setup`` has it.
+    status["setup"] = profiling.SETUP.snapshot()
     status["batcher"] = (
         {
             "batches_run": batcher.batches_run,
             "requests_served": batcher.requests_served,
+            "setup": status["setup"],
         }
         if batcher is not None
         else None

@@ -14,11 +14,18 @@ messages it serves (one id per message, drawn by ``next_id`` where the
 WebSocket route receives it; a span with none takes its parent's); the
 Chrome trace carries them after the name, ``tt.batcher.dispatch@3,4``.
 Without a trace recording a span is one flag test and records nothing.
+
+The set-up account (``SETUP``, a ``SetupAccount``) is always on: it sums
+the seconds of the engine's cold loads, the index reads and model loads
+inside them and the kernel library's first load, and the served time of
+the app's event loop (chat messages, session creates, WebSocket
+handshakes), for the life of the process.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import os
 import threading
@@ -216,3 +223,141 @@ def recorded(t0: float, t1: float, name: str | None = None) -> list[Record]:
     """The ring's records that started and ended between ``t0`` and ``t1``
     (``time.perf_counter``), of span ``name`` (``tt.<name>``) or of all."""
     return [r for r in list(_ring) if t0 <= r.t0 and r.t1 <= t1 and (name is None or r.name == name)]
+
+
+# -- the set-up account -----------------------------------------------------------
+
+
+class _BusyClock:
+    """Wall seconds during which one or more of its requests are in flight.
+    Only the event loop moves it; ``state`` is replaced whole, so another
+    thread reads a consistent pair without a lock."""
+
+    __slots__ = ("in_flight", "state")
+
+    def __init__(self):
+        self.in_flight = 0
+        # (seconds of the closed busy stretches, start of the open one or None)
+        self.state = (0.0, None)
+
+    def enter(self, now: float) -> None:
+        if self.in_flight == 0:
+            self.state = (self.state[0], now)
+        self.in_flight += 1
+
+    def leave(self, now: float) -> None:
+        self.in_flight -= 1
+        if self.in_flight == 0:
+            total, since = self.state
+            self.state = (total + now - since, None)
+
+    def seconds(self, clock) -> float:
+        total, since = self.state  # read before the clock: ``since`` is never after ``now``
+        return total if since is None else total + clock() - since
+
+
+class _InFlight:
+    # One request on the served-time clock, as a context manager.
+    __slots__ = ("account", "count")
+
+    def __init__(self, account: "SetupAccount", count: str | None):
+        self.account, self.count = account, count
+
+    def __enter__(self):
+        account = self.account
+        if self.count is not None:
+            account._counts[self.count] += 1
+        account._busy.enter(account.clock())
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.account._busy.leave(self.account.clock())
+
+
+class SetupAccount:
+    """What bringing the server up costs, as process-lifetime totals on the
+    host clock, always on (no profiler needed); ``/api/system/rag/status``
+    reports ``snapshot()`` under ``setup``.
+
+    Phases, from any thread (``phase``): ``engine`` (each cold
+    ``load_engine_for_modules``), ``index_read`` (each ``VectorIndex.load``
+    it makes; ``index_read_rows`` and ``_nodes`` count what they read),
+    ``models`` (each ``ModelManager._load``, with each role's tokenizer and
+    weights parts) and ``kernels`` (the kernel library's first load). Each
+    adds ``<key>_s`` and ``<key>_n``; ``engine`` also ``engine_busy_s``, the
+    part of it that fell in served time. Under a profiler each is also span
+    ``tt.setup.<name>``.
+
+    The served-time clock (``serving``) runs on the app's event loop: it
+    keeps the requests in flight (a chat message from the frame received to
+    the end of its handling, a session create, a WebSocket handshake until
+    its ``prepare`` returns) and adds the wall seconds during which one or
+    more are, so overlapping requests count once (``busy_s``). ``messages``
+    and ``sessions`` count the chat messages and session creates."""
+
+    def __init__(self, clock=time.perf_counter):
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._sums: dict[str, float] = dict.fromkeys(
+            [f"{key}_{part}" for key in ("engine", "index_read", "models", "kernels") for part in ("s", "n")]
+            + ["engine_busy_s"], 0)
+        self._busy = _BusyClock()
+        self._counts = {"messages": 0, "sessions": 0}
+
+    def add(self, **amounts) -> None:
+        """Add seconds or counts to the totals (any thread)."""
+        with self._lock:
+            for key, amount in amounts.items():
+                self._sums[key] = self._sums.get(key, 0) + amount
+
+    def busy_s(self) -> float:
+        """Served seconds so far (any thread)."""
+        return self._busy.seconds(self.clock)
+
+    @contextlib.contextmanager
+    def phase(self, name: str, key: str | None = None, served: bool = False):
+        """Time the block into ``<key>_s`` (``key`` defaults to ``name``),
+        under span ``tt.setup.<name>``; with ``served``, also the part of it
+        that fell in served time into ``<key>_busy_s``."""
+        key = key or name
+        with span("setup." + name):
+            t0 = self.clock()
+            b0 = self.busy_s() if served else 0.0
+            try:
+                yield
+            finally:
+                amounts = {f"{key}_s": self.clock() - t0, f"{key}_n": 1}
+                if served:
+                    amounts[f"{key}_busy_s"] = self.busy_s() - b0
+                self.add(**amounts)
+
+    def serving(self, count: str | None = None) -> _InFlight:
+        """Context manager: one request in flight on the served-time clock,
+        counted under ``count`` (``messages`` or ``sessions``) where given.
+        Event loop only."""
+        return _InFlight(self, count)
+
+    def snapshot(self) -> dict:
+        """The totals so far, with the served seconds up to now."""
+        with self._lock:
+            out = dict(self._sums)
+        out["busy_s"] = self.busy_s()
+        out.update(self._counts)
+        return out
+
+
+# The process's account.
+SETUP = SetupAccount()
+
+
+def setup_phase(name: str):
+    """Decorator: each call of the function is set-up phase ``name`` of the
+    process's account (``SETUP``, looked up at each call), with the part of
+    it that fell in served time."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            with SETUP.phase(name, served=True):
+                return fn(*args, **kwargs)
+        return timed
+    return wrap

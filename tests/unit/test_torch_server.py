@@ -54,7 +54,7 @@ ADAPTED = {
     "server/deps.py": {"ServiceContainer.__init__", "ServiceContainer.rag_service",
                        "ServiceContainer.document_service"},
     "server/routes/system.py": {"<docstring>", "device_entries", "memory", "devices", "profile_start",
-                                "profile_stop"},
+                                "profile_stop", "rag_status"},
     "server/routes/config.py": {"get_devices"},
     # ws_chat draws each message's id and opens the spans of utils/profiling.py
     "server/routes/chat.py": {"_current_reranker", "ws_chat", "_session_io", "import contextvars", "import os",
@@ -66,7 +66,14 @@ ADAPTED = {
                            "RING_SIZE", "Record", "_ring", "_message_ids", "_span_ids", "_current", "next_id", "_ids",
                            "_Span.__init__", "_Span.__enter__", "_Span.__exit__", "_Span.count", "_Span.close",
                            "_Off.__enter__", "_Off.__exit__", "_Off.__bool__", "_Off.count", "_Off.close", "_OFF",
-                           "span", "record", "current_span", "recorded"},
+                           "span", "record", "current_span", "recorded",
+                           # the set-up account
+                           "import functools", "_BusyClock.<docstring>",
+                           '_BusyClock.__slots__ = ("in_flight", "state")', "_BusyClock.__init__", "_BusyClock.enter",
+                           "_BusyClock.leave", "_BusyClock.seconds", '_InFlight.__slots__ = ("account", "count")',
+                           "_InFlight.__init__", "_InFlight.__enter__", "_InFlight.__exit__", "SetupAccount.<docstring>", "SetupAccount.__init__", "SetupAccount.add",
+                           "SetupAccount.busy_s", "SetupAccount.phase", "SetupAccount.serving", "SetupAccount.snapshot",
+                           "SETUP", "setup_phase"},
     # stamps each request's submit time and message ids, and spans the
     # dispatch, the finisher and each request's wait in the queue
     "services/batcher.py": {"import time", "from tensortruth_tpu_torch.utils import profiling",
@@ -306,6 +313,8 @@ async def flow_startup_modules_and_rag_status(client):
     sid = await _session(client, modules=["alpha"])
     for _ in range(2):  # before and after a chat; the resident models' entries differ by package
         status = await (await client.get("/api/system/rag/status")).json()
+        # the port's own set-up account, also beside its batcher's counters (test_torch_setup_account.py)
+        (status["batcher"] or {}).pop("setup", None)
         out.append({**{k: _scrub(status[k]) for k in ("engine", "batcher")},
                     "stages": sorted(status["last_query_timings"])})  # host ms: the names only
         await client.post(f"/api/sessions/{sid}/chat", json={"message": "topic 5 w30_1 w30_2"})
@@ -371,6 +380,9 @@ def test_profile_routes_write_a_torch_trace(served, tmp_path):
 # The serving path's spans (utils/profiling.py), one WebSocket message through it.
 SPANS = {"ws.message", "route.session_io", "route.title", "route.context", "rag.retrieve", "batcher.queue",
          "batcher.dispatch", "batcher.finish", "query_step", "search", "rerank.launch", "rerank.finish", "llm.stream"}
+# The set-up spans of the engine's cold load that the first message waits for (the models are seated here, so no
+# tt.setup.model): the load runs on the executor and serves every message that waits for it, so they carry no id.
+SETUP_SPANS = {"setup.engine", "setup.index_read"}
 
 
 def test_ws_message_spans_each_layer_under_its_id(served, tmp_path):
@@ -401,7 +413,10 @@ def test_ws_message_spans_each_layer_under_its_id(served, tmp_path):
     frames, t0, t1, stop = run(chat())
     assert [f["type"] for f in frames][-3:] == ["sources", "done", "title"]
     recs = profiling.recorded(t0, t1)
-    assert {r.name for r in recs} == {"tt." + name for name in SPANS}
+    assert {r.name for r in recs} == {"tt." + name for name in SPANS | SETUP_SPANS}
+    cold = [r for r in recs if r.name in {"tt." + name for name in SETUP_SPANS}]
+    assert [r.rids for r in cold] == [(), ()]
+    recs = [r for r in recs if r not in cold]
     (msg,) = [r for r in recs if r.name == "tt.ws.message"]
     assert len(msg.rids) == 1 and all(r.rids == msg.rids for r in recs)
     by_name = {}
@@ -420,7 +435,7 @@ def test_ws_message_spans_each_layer_under_its_id(served, tmp_path):
     (rid,) = msg.rids
     events = json.loads(pathlib.Path(stop["trace"]).read_text())["traceEvents"]
     named = {e["name"] for e in events if e.get("ph") == "X" and str(e.get("name", "")).startswith("tt.")}
-    assert named == {f"tt.{name}@{rid}" for name in SPANS - {"batcher.queue"}}
+    assert named == {f"tt.{name}@{rid}" for name in SPANS - {"batcher.queue"}} | {f"tt.{name}" for name in SETUP_SPANS}
 
 
 def test_default_app_loads_on_cuda_and_never_answers_from_the_cpu(served):
@@ -443,8 +458,8 @@ def test_default_app_loads_on_cuda_and_never_answers_from_the_cpu(served):
 
 def _top_level(path: pathlib.Path) -> dict[str, str]:
     """Each top-level statement (functions and class methods by qualified
-    name, the docstring as ``<docstring>``, anything else by its source)
-    -> its source."""
+    name, the module's or a class's docstring as ``<docstring>``, anything
+    else by its source) -> its source."""
     src = path.read_text(encoding="utf-8")
     tree = ast.parse(src)
     out = {}
@@ -455,8 +470,10 @@ def _top_level(path: pathlib.Path) -> dict[str, str]:
         elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             out[node.name] = text
         elif isinstance(node, ast.ClassDef):
-            for item in node.body:
+            for j, item in enumerate(node.body):
                 name = getattr(item, "name", None) or ast.get_source_segment(src, item)
+                if j == 0 and isinstance(item, ast.Expr) and isinstance(item.value, ast.Constant):
+                    name = "<docstring>"
                 out[f"{node.name}.{name}"] = ast.get_source_segment(src, item)
         elif isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
             out[node.targets[0].id] = text
