@@ -209,7 +209,7 @@ def run(cell: Cell, seed: int, seconds: float, tracing: bool, t_start: float, ti
         result["breakdown"] = {"device_ops": out["trace"]["device_ops"], "idle_gaps": out["trace"]["idle_gaps"]}
     result["checks"] = shown
     info = {"seed": seed, "cell": cell.name, "setup_s": out["setup_s"], "corpus_write_s": corpus_s,
-            "lateness_ms": out.get("lateness_ms"), "batcher": out["batcher"], "placement_s": placement,
+            "lateness_ms": out.get("lateness_ms"), "status": out["status"], "placement_s": placement,
             "answered": out["answered"], "answered_span_s": out["answered_span_s"],
             "p50_ms": arith.percentile(out["latencies_ms"], 50) if out["latencies_ms"] else None,
             "p95_ms": arith.percentile(out["latencies_ms"], 95) if out["latencies_ms"] else None,
@@ -329,7 +329,7 @@ def _drive(sv, spec, seed, seconds, tracing, t_start) -> dict:
     status1 = load.ask(cmd="status")
     out = {"setup_s": start - t_start, "window_s": seconds, "latencies_ms": lat, "answered": answered,
            "answered_span_s": answered_span,
-           "counted": counted, "lateness_ms": lateness, "batcher": {"before": status0, "after": status1},
+           "counted": counted, "lateness_ms": lateness, "status": {"before": status0, "after": status1},
            "trace": None, "trace_t0": prof_box.get("t0"), "trace_t1": prof_box.get("t1")}
     if lateness is not None:
         print("lateness " + json.dumps(lateness), file=sys.stderr, flush=True)

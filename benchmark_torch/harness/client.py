@@ -69,7 +69,7 @@ async def main() -> None:
                 await client.fill(cmd["n"])
                 say({"ok": True})
             elif op == "status":
-                say((await client.status()).get("batcher") or {})
+                say(await client.status())
             elif op == "open_loop":
                 t0 = time.perf_counter() + 0.2
                 say({"window_start": time.time() + 0.2})

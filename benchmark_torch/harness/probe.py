@@ -1,31 +1,29 @@
-"""The benchmark's own spans and records around calls into the program.
+"""The benchmark's records of calls into the program, and its planted
+faults.
 
-``Probe.install`` wraps, for the life of the process, the calls each layer
-is entered by:
+``Probe.install`` wraps, for the life of the process, four seams that every
+retrieval tier's query step passes through:
 
-* ``RAGService._run_retrieval_batch`` (one batcher dispatch): span
-  ``bench.batch``;
-* ``QueryPipeline.retrieve_batch`` (flat tier), or the query encode and
-  ``MultiIndexEngine.retrieve_batch`` inside a dispatch (IVF tier): span
-  ``bench.query_step``; each query's candidates (node id, dot) are kept for
-  the comparison;
-* the search the query step calls (``fused_topk`` as the pipeline calls it,
-  ``ivf_search`` as the engine calls it): span ``bench.search``, with the
-  shapes its roofline is counted from;
-* ``Reranker.score_pairs_async`` and the finisher it returns: span
-  ``bench.rerank``, with the pairs it scored.
+* ``RAGService._run_retrieval_batch`` (one batcher dispatch): the
+  dispatch's query texts, for ``serve_mfu`` and to pair with its
+  candidates;
+* ``MultiIndexEngine._postprocess`` (one call a query, in query order, on
+  every tier): each query's candidates (node id, dot), kept for the
+  comparison once the dispatch's count of them matches its texts;
+* ``ivf_search`` as the engine calls it: the query and the index that the
+  IVF roofline counts the probed clusters from;
+* ``Reranker.score_pairs_async``: the pairs it scored.
 
-Spans are ``torch.profiler.record_function`` ranges, entered only while a
-trace runs; the records are kept in every run. A planted fault (tests
-only) breaks the timed path underneath: ``score`` alters every rerank
-score where it is produced (+0.02), ``half`` leaves out the second half of
-every rerank batch and gives it the mean of the first half's scores,
-``reverse`` hands back each query's sources in ascending order.
+The layers' times are the program's own ``tt.*`` spans, read from the
+trace (``harness/trace.py``); the probe opens no range. A planted fault
+(tests only) breaks the timed path underneath: ``score`` alters every
+rerank score where it is produced (+0.02), ``half`` leaves out the second
+half of every rerank batch and gives it the mean of the first half's
+scores, ``reverse`` hands back each query's sources in ascending order.
 """
 
 from __future__ import annotations
 
-import contextlib
 import threading
 import time
 
@@ -35,18 +33,11 @@ class Probe:
         self.tracing = False
         self.fault = fault
         self.candidates: dict[str, list] = {}  # query text -> [(node id, dot)]
-        self.searches: list[dict] = []
+        self.ivf_searches: list[tuple[float, dict]] = []  # (host time, query and index)
         self.reranks: list[tuple[float, list]] = []  # (host time, pairs)
         self.queries: list[tuple[float, list]] = []  # (host time, query texts)
         self._tls = threading.local()
         self._undo: list = []
-
-    def span(self, name: str):
-        if not self.tracing:
-            return contextlib.nullcontext()
-        import torch
-
-        return torch.profiler.record_function(name)
 
     def _patch(self, owner, attr: str, make) -> None:
         orig = getattr(owner, attr)
@@ -58,13 +49,7 @@ class Probe:
             owner, attr, orig = self._undo.pop()
             setattr(owner, attr, orig)
 
-    def _keep(self, texts, results) -> None:
-        for text, nodes in zip(texts, results):
-            self.candidates[text] = [(r.node.node_id, float(r.score)) for r in nodes]
-
     def install(self) -> "Probe":
-        from tensortruth_tpu_torch import pipeline
-        from tensortruth_tpu_torch.models.embedder import Embedder
         from tensortruth_tpu_torch.models.reranker import Reranker
         from tensortruth_tpu_torch.retrieval import engine
         from tensortruth_tpu_torch.services.rag_service import RAGService
@@ -73,82 +58,46 @@ class Probe:
 
         def dispatch(orig):
             def run_batch(self, texts, engine=None):
-                tls.texts = list(texts)
-                probe.queries.append((time.perf_counter(), tls.texts))
+                texts, found = list(texts), []
+                probe.queries.append((time.perf_counter(), texts))
+                tls.found = found
                 try:
-                    with probe.span("bench.batch"):
-                        out = orig(self, texts, engine)
+                    out = orig(self, texts, engine)
                 finally:
-                    tls.texts = None
+                    tls.found = None
+                if len(found) == len(texts):
+                    probe.candidates.update(zip(texts, found))
                 if probe.fault == "reverse":
                     return (lambda f: lambda: [s[::-1] for s in f()])(out) if callable(out) else [s[::-1] for s in out]
                 return out
             return run_batch
 
-        def pipeline_step(orig):
-            def retrieve_batch(self, texts):
-                with probe.span("bench.query_step"):
-                    out = orig(self, texts)
-                probe._keep(texts, out)
+        def postprocess(orig):
+            def _postprocess(self, scores, rows):
+                out = orig(self, scores, rows)
+                found = getattr(tls, "found", None)
+                if found is not None:
+                    found.append([(r.node.node_id, float(r.score)) for r in out])
                 return out
-            return retrieve_batch
-
-        def engine_step(orig):
-            def retrieve_batch(self, query_embs):
-                with probe.span("bench.query_step"):
-                    out = orig(self, query_embs)
-                texts = getattr(tls, "texts", None)
-                if texts is not None and len(texts) == len(out):
-                    probe._keep(texts, out)
-                return out
-            return retrieve_batch
-
-        def encode_step(orig):
-            def encode(self, texts, is_query=False, batch_size=None):
-                if is_query and getattr(tls, "texts", None) is not None:
-                    with probe.span("bench.query_step"):
-                        return orig(self, texts, is_query, batch_size)
-                return orig(self, texts, is_query, batch_size)
-            return encode
-
-        def flat_search(orig):
-            def fused_topk(q, emb, k, *args, **kw):
-                texts = getattr(tls, "texts", None)
-                probe.searches.append({
-                    "t": time.perf_counter(), "kind": "flat", "b": len(texts) if texts else q.shape[0],
-                    "n": kw.get("n_actual") or emb.shape[0], "d": emb.shape[1], "k": k,
-                    "elem": emb.element_size()})
-                with probe.span("bench.search"):
-                    return orig(q, emb, k, *args, **kw)
-            return fused_topk
+            return _postprocess
 
         def ivf(orig):
             def ivf_search(index, q, k, nprobe=8, plain=False):
-                probe.searches.append({
-                    "t": time.perf_counter(), "kind": "ivf", "b": q.shape[0], "k": k, "nprobe": nprobe,
-                    "q": q.detach().clone() if probe.tracing else None, "index": index})
-                with probe.span("bench.search"):
-                    return orig(index, q, k, nprobe, plain)
+                if probe.tracing:
+                    probe.ivf_searches.append((time.perf_counter(), {
+                        "q": q.detach().clone(), "index": index, "k": k, "nprobe": nprobe}))
+                return orig(index, q, k, nprobe, plain)
             return ivf_search
 
         def rerank(orig):
             def score_pairs_async(self, pairs, feeder=None):
                 probe.reranks.append((time.perf_counter(), pairs))
-                with probe.span("bench.rerank"):
-                    finish = orig(self, pairs, feeder)
-
-                def finished():
-                    with probe.span("bench.rerank"):
-                        scores = finish()
-                    return probe._break(scores)
-                return finished
+                finish = orig(self, pairs, feeder)
+                return lambda: probe._break(finish())
             return score_pairs_async
 
         self._patch(RAGService, "_run_retrieval_batch", dispatch)
-        self._patch(pipeline.QueryPipeline, "retrieve_batch", pipeline_step)
-        self._patch(engine.MultiIndexEngine, "retrieve_batch", engine_step)
-        self._patch(Embedder, "encode", encode_step)
-        self._patch(pipeline, "fused_topk", flat_search)
+        self._patch(engine.MultiIndexEngine, "_postprocess", postprocess)
         self._patch(engine, "ivf_search", ivf)
         self._patch(Reranker, "score_pairs_async", rerank)
         return self

@@ -11,15 +11,27 @@ out of the line."""
 from __future__ import annotations
 
 
-def records(ctx, name: str) -> list:
-    """Records of span ``name`` (``tt.<layer>.<what>``) in the traced window."""
+def _recorded(ctx, t1: float, name: str) -> list:
     if ctx.trace_t0 is None:
         return []
     try:
         from tensortruth_tpu_torch.utils.profiling import recorded
     except ImportError:
         return []
-    return recorded(ctx.trace_t0, ctx.trace_t1, name)
+    return recorded(ctx.trace_t0, t1, name)
+
+
+def records(ctx, name: str) -> list:
+    """Records of span ``name`` (``tt.<layer>.<what>``) in the traced window,
+    in start order."""
+    return sorted(_recorded(ctx, ctx.trace_t1, name), key=lambda r: r.t0)
+
+
+def started(ctx, name: str) -> dict:
+    """Records of span ``name`` that started in the traced window, whenever
+    they ended, by sequence number: the parents a record's ``parent`` names
+    (a parent ends after its children)."""
+    return {r.seq: r for r in _recorded(ctx, float("inf"), name)}
 
 
 def mean_ms(recs: list):

@@ -1,6 +1,6 @@
 """What the metric readers (``metrics/<name>.py``) share: the reduced
-trace's spans, the probe's records inside the traced window, and the counts
-they are divided by."""
+trace's ``tt.*`` spans, the probe's records inside the traced window, and
+the counts they are divided by."""
 
 from __future__ import annotations
 
@@ -11,15 +11,18 @@ from .families import family
 
 def mean_batch(ctx):
     """Requests per batcher dispatch over the window, from the deltas of
-    ``requests_served`` and ``batches_run`` at ``/api/system/rag/status``."""
-    before, after = ctx.batcher["before"], ctx.batcher["after"]
+    ``requests_served`` and ``batches_run`` in the ``batcher`` entry of
+    ``/api/system/rag/status``."""
+    before, after = (ctx.status[k].get("batcher") or {} for k in ("before", "after"))
     batches = after.get("batches_run", 0) - before.get("batches_run", 0)
     served = after.get("requests_served", 0) - before.get("requests_served", 0)
     return served / batches if batches > 0 else None
 
 
 def spans(ctx, name: str) -> list[float]:
-    """Device seconds of each instance of span ``name`` in the trace."""
+    """Device seconds of each instance of the program's span ``name``
+    (``tt.<layer>.<what>``, its message ids left off) in the trace, in start
+    order."""
     return (ctx.trace or {}).get("spans", {}).get(name, [])
 
 
@@ -30,12 +33,13 @@ def in_window(ctx, records: list) -> list:
     return [r for r in records if ctx.trace_t0 <= r[0] <= ctx.trace_t1]
 
 
-def per_batch_ms(ctx, name: str):
-    """Device milliseconds of span ``name`` per batcher dispatch traced."""
-    n, times = len(spans(ctx, "bench.batch")), spans(ctx, name)
-    if not n or sum(times) <= 0:
+def per_batch_ms(ctx, *names: str):
+    """Device milliseconds of the spans ``names`` per batcher dispatch
+    (``tt.batcher.dispatch``) traced."""
+    n, device = len(spans(ctx, "tt.batcher.dispatch")), sum(sum(spans(ctx, name)) for name in names)
+    if not n or device <= 0:
         return None
-    return 1e3 * sum(times) / n
+    return 1e3 * device / n
 
 
 def idle_pct(ctx):
@@ -65,17 +69,16 @@ def mfu(ctx):
     return mfu_pct(serve_flops(ctx), ctx.trace["window_s"])
 
 
-def search_roofline(ctx, kind: str, work):
+def search_roofline(ctx, searches: list, work):
     """Share of the bound (operations at the bf16 peak or bytes at the
-    memory bandwidth, the larger) of the searches traced, over their spans'
-    device time; the n-th search recorded in the window is the n-th span."""
+    memory bandwidth, the larger) of the searches traced, over their
+    ``tt.search`` spans' device time; the n-th search recorded in the window
+    is the n-th span. ``work(search)`` gives its (operations, bytes), or None
+    where it cannot be counted: that search is left out with its span."""
     from .arith import bound_s
 
-    recs = [s for s in ctx.probe.searches if s["kind"] == kind and ctx.trace_t0 is not None
-            and ctx.trace_t0 <= s["t"] <= ctx.trace_t1]
-    times = spans(ctx, "bench.search")
-    n = min(len(recs), len(times))
-    device = sum(times[:n])
-    if not n or device <= 0:
+    pairs = [(w, t) for w, t in zip(map(work, searches), spans(ctx, "tt.search")) if w is not None]
+    device = sum(t for _, t in pairs)
+    if not pairs or device <= 0:
         return None
-    return 100.0 * sum(bound_s(*work(s)) for s in recs[:n]) / device
+    return 100.0 * sum(bound_s(*w) for w, _ in pairs) / device

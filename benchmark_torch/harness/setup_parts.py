@@ -1,8 +1,8 @@
 """The program's set-up account (``tensortruth_tpu_torch/utils/profiling.py``:
 ``SetupAccount``), as the ``metrics/setup_*.py`` readers take it: the
-``setup`` entry of ``/api/system/rag/status`` beside the batcher's counters,
-read once the warm-up and the session fill are done, just before the window
-starts (``ctx.batcher["before"]``), so its totals are the set-up's own."""
+``setup`` entry of ``/api/system/rag/status``, read once the warm-up and the
+session fill are done, just before the window starts
+(``ctx.status["before"]``), so its totals are the set-up's own."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from __future__ import annotations
 def account(ctx) -> dict | None:
     """The account's totals before the window, or None for a program
     without one."""
-    before = (getattr(ctx, "batcher", None) or {}).get("before") or {}
+    before = (getattr(ctx, "status", None) or {}).get("before") or {}
     return before.get("setup")
 
 

@@ -1,9 +1,11 @@
 """ivf_roofline: the IVF search (``ops/ivf.py::ivf_search``: routing over
-the centroids, then B4 over the probed blocks) against its bound. Bytes:
-the centroids and queries read once, each distinct probed cluster's valid
-rows read once, results written once; operations: the routing product and
-each (query, probe) pair's rows. The probes are recomputed after the window
-from the traced queries (the top ``nprobe`` centroids of each)."""
+the centroids, then B4 over the probed blocks) against its bound, over the
+device time inside the program's ``tt.search`` spans. Bytes: the centroids
+and queries read once, each distinct probed cluster's valid rows read once,
+results written once; operations: the routing product and each (query,
+probe) pair's rows. The probes are recomputed after the window from the
+queries and index the probe kept of each traced call (the top ``nprobe``
+centroids of each query)."""
 from benchmark_torch.harness import readers
 from benchmark_torch.harness.arith import ivf_work
 
@@ -22,4 +24,4 @@ def _work(s):
 
 
 def read(ctx):
-    return readers.search_roofline(ctx, "ivf", _work)
+    return readers.search_roofline(ctx, [s for _, s in readers.in_window(ctx, ctx.probe.ivf_searches)], _work)

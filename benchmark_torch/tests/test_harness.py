@@ -152,8 +152,8 @@ def test_every_name_has_its_file():
         assert (ROOT / "benchmark_torch" / "configs" / f"{config['reference']}.py").exists()
     empty = SimpleNamespace(trace=None, trace_t0=None, trace_t1=None, latencies_ms=[], answered=0, window_s=1.0,
                             answered_span_s=None,
-                            placement_seconds={}, batcher={"before": {}, "after": {}}, setup_s=1.0,
-                            probe=SimpleNamespace(searches=[], queries=[], reranks=[]),
+                            placement_seconds={}, status={"before": {}, "after": {}}, setup_s=1.0,
+                            probe=SimpleNamespace(ivf_searches=[], queries=[], reranks=[]),
                             config=json.loads((ROOT / BENCH["configs"][0]["file"]).read_text()))
     from benchmark_torch.harness import arith
 

@@ -3,8 +3,9 @@
 
     python -m pytest benchmark_torch/tests/test_setup_metrics.py -q
 
-* from synthetic statuses each reader gives the number its docstring
-  defines, and None for a program whose status has no ``setup`` entry;
+* from synthetic statuses (the whole ``/api/system/rag/status``) each
+  reader gives the number its docstring defines, and None for a program
+  whose status has no ``setup`` entry;
 * a traced ``--tiny`` rehearsal of each cell prints all five, each at least
   0, with engine, served and other summing to that run's ``setup_s``.
 """
@@ -30,20 +31,33 @@ sys.path.insert(0, str(ROOT))
 def read(name, before, setup_s=30.0):
     from benchmark_torch.harness import chat
 
-    return chat.load_metric(name).read(SimpleNamespace(setup_s=setup_s, batcher={"before": before, "after": {}}))
+    return chat.load_metric(name).read(SimpleNamespace(setup_s=setup_s, status={"before": before, "after": {}}))
 
 
 def test_readers_on_synthetic_statuses():
     setup = {"engine_s": 6.0, "engine_busy_s": 5.5, "index_read_s": 0.5, "models_s": 2.5, "busy_s": 17.5,
              "messages": 190, "sessions": 300}
-    before = {"batches_run": 40, "requests_served": 190, "setup": setup}
+    before = {"batcher": {"batches_run": 40, "requests_served": 190}, "setup": setup}
     got = {name: read(name, before) for name in FIVE}
     assert got == {"setup_engine_s": 6.0, "setup_index_s": 0.5, "setup_models_s": 2.5, "setup_served_s": 12.0,
                    "setup_other_s": 12.0}
     assert got["setup_engine_s"] + got["setup_served_s"] + got["setup_other_s"] == 30.0
-    for before in ({"batches_run": 40, "requests_served": 190}, {}):  # a program without the account
+    for before in ({"batcher": {"batches_run": 40, "requests_served": 190}}, {}):  # a program without the account
         for name in FIVE:
             assert read(name, before) is None, name
+
+
+def test_mean_batch_reads_the_batcher_entry():
+    from benchmark_torch.harness import chat
+
+    def status(batches, served):
+        return {"batcher": {"batches_run": batches, "requests_served": served}, "setup": {"busy_s": 1.0},
+                "engine": {"n_chunks": 4096}}
+
+    read = chat.load_metric("mean_batch.poisson").read
+    assert read(SimpleNamespace(status={"before": status(40, 190), "after": status(50, 205)})) == 1.5
+    assert read(SimpleNamespace(status={"before": status(40, 190), "after": status(40, 190)})) is None
+    assert read(SimpleNamespace(status={"before": {"batcher": None}, "after": {"batcher": None}})) is None
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -65,5 +79,5 @@ def test_traced_tiny_rehearsal_prints_the_five(cell):
     assert got["setup_engine_s"] + got["setup_served_s"] + got["setup_other_s"] == pytest.approx(
         info["setup_s"], abs=0.05)
     assert got["setup_index_s"] + got["setup_models_s"] <= got["setup_engine_s"]
-    setup = info["batcher"]["before"]["setup"]
+    setup = info["status"]["before"]["setup"]
     assert setup["engine_n"] == 1 and setup["messages"] >= 1 and setup["sessions"] >= 1

@@ -34,6 +34,7 @@ import json
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
@@ -72,7 +73,7 @@ def reseat(sv, seed: int) -> None:
 
 
 def drive(sv, spec, args) -> None:
-    from benchmark_torch.harness import arith, chat, check
+    from benchmark_torch.harness import arith, chat, check, readers
 
     n = max([int(round(r * args.sweep_seconds)) for r in args.sweep] + [chat.window_size(spec, args.window)])
     chat.warm_up(sv.load, spec, sv.texts, n)
@@ -100,8 +101,7 @@ def drive(sv, spec, args) -> None:
                         "failed": len(msgs) - len(ok), "p50_ms": arith.percentile(lat, 50),
                         "p95_ms": p95, "late_ms": lateness,
                         "last_over_first_third": growth, "drain_s": drain, "sustained": sustained,
-                        "mean_batch": (b1.get("requests_served", 0) - b0.get("requests_served", 0))
-                        / max(1, b1.get("batches_run", 0) - b0.get("batches_run", 0))}})
+                        "mean_batch": readers.mean_batch(SimpleNamespace(status={"before": b0, "after": b1}))}})
     if args.sweep:
         rate = None if knee is None else round(spec["rate_share_of_knee"] * knee * 2) / 2
         emit({"knee_per_s": knee, "rate_per_s": rate})

@@ -6,23 +6,15 @@ program's ``tt.*`` spans (``tensortruth_tpu_torch/utils/profiling.py``).
 
 The trace is a ``torch.profiler`` trace of every thread and the card: a
 ``--trace 1`` window kept before the harness deletes it, or one taken
-through ``/api/system/profile/start|stop``. The card is busy while a
-kernel, copy or set runs (as ``harness/trace.py`` counts it) and idle for
-the rest of the time from the first device operation to the last (host
-events past those ends belong to the profiler's start and stop). Threads are told apart by the spans they
-run: the event loop runs ``tt.ws.message``, the batcher's worker
-``tt.batcher.dispatch``, the pump threads ``tt.rag.retrieve`` or
-``tt.llm.stream``.
+through ``/api/system/profile/start|stop``. The trace is read, and the
+card's idle time and each span's hold on it found, by ``harness/trace.py``
+(the reduction a traced run's breakdown comes from).
 
 Printed: each of the ``--top`` longest idle gaps with the innermost ``tt.*``
 span open at its midpoint on each thread; then the idle time split into
 "no message in flight" (no ``tt.*`` span open on any thread: the offered
-load) and the time held by the host, by the span holding it. A span holds
-the idle time in this order: the worker's innermost span; else the event
-loop's innermost ``tt.route.*`` span (synchronous work on the loop); else a
-pump's ``tt.llm.stream``, then ``tt.rag.retrieve`` (waiting in the batcher's
-queue or window); else ``tt.ws.message`` (the message between stages, its
-frames on the loop) or any other ``tt.*`` span.
+load) and the time held by the host, by the span holding it
+(``trace.holder``).
 """
 
 from __future__ import annotations
@@ -32,97 +24,21 @@ import bisect
 import json
 import sys
 from collections import defaultdict
+from pathlib import Path
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-ROLES = (("event loop", {"tt.ws.message"}), ("batcher worker", {"tt.batcher.dispatch"}),
-         ("pump", {"tt.rag.retrieve", "tt.llm.stream"}))
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-
-def base(name: str) -> str:
-    """``tt.batcher.dispatch@3,4`` -> ``tt.batcher.dispatch``."""
-    return name.split("@", 1)[0]
+from benchmark_torch.harness.trace import (  # noqa: E402
+    device_extent, holder, idle_intervals, innermost, load, open_at, roles)
 
 
-def load(path: str) -> tuple[list, list, tuple[float, float]]:
-    """(device intervals, tt spans as (start, end, name, thread), the first
-    device operation's start and the last one's end), in microseconds."""
-    with open(path, encoding="utf-8") as f:
-        events = json.load(f).get("traceEvents", [])
-    device, spans = [], []
-    for e in events:
-        if e.get("ph") != "X" or "ts" not in e:
-            continue
-        ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
-        name = str(e.get("name", ""))
-        if e.get("cat") in DEVICE_CATS:
-            device.append((ts, ts + dur))
-        elif e.get("cat") == "user_annotation" and name.startswith("tt."):
-            spans.append((ts, ts + dur, base(name), (e.get("pid"), e.get("tid"))))
-    extent = (min(s for s, _ in device), max(e for _, e in device)) if device else (0.0, 0.0)
-    return device, spans, extent
-
-
-def idle_intervals(device: list, extent: tuple[float, float]) -> list[tuple[float, float]]:
-    """The extent less the union of the device intervals."""
-    out, cur = [], extent[0]
-    for s, e in sorted(device):
-        if s > cur:
-            out.append((cur, s))
-        cur = max(cur, e)
-    if extent[1] > cur:
-        out.append((cur, extent[1]))
-    return out
-
-
-def roles(spans: list) -> dict:
-    """Thread -> its role, from the spans it runs (``other`` for none)."""
-    names = defaultdict(set)
-    for _, _, name, thread in spans:
-        names[thread].add(name)
-    return {t: next((role for role, markers in ROLES if markers & n), "other") for t, n in names.items()}
-
-
-def innermost(open_spans: list) -> dict:
-    """Thread -> the name of its latest-started open span (of two that start
-    together, the shorter: the one nested in the other)."""
-    out = {}
-    for _, _, name, thread in sorted(open_spans, key=lambda s: (s[0], -s[1])):
-        out[thread] = name
-    return out
-
-
-def holder(open_spans: list, role_of: dict) -> str:
-    """Which span holds idle time while ``open_spans`` are open (the order in
-    the module's docstring); ``no message in flight`` with none."""
-    if not open_spans:
-        return "no message in flight"
-    by_role: dict[str, list[str]] = {}
-    for thread, name in innermost(open_spans).items():
-        by_role.setdefault(role_of.get(thread, "other"), []).append(name)
-    worker, loop, pump = (by_role.get(r, []) for r in ("batcher worker", "event loop", "pump"))
-    if worker:
-        return "batcher worker: " + worker[0]
-    route = [n for n in loop if n.startswith("tt.route.")]
-    if route:
-        return "event loop: " + route[0]
-    for name in ("tt.llm.stream", "tt.rag.retrieve"):
-        if name in pump:
-            return "pump: " + name
-    if loop:
-        return "event loop: " + loop[0]
-    role, names = next(iter(by_role.items()))
-    return f"{role}: {names[0]}"
-
-
-def open_at(spans: list, t: float) -> list:
-    return [s for s in spans if s[0] <= t < s[1]]
-
-
-def attribute(device: list, spans: list, extent: tuple[float, float], top: int = 10) -> dict:
-    """The longest idle gaps, each with each thread's innermost span at its
-    midpoint, and the idle time split by holder (microseconds in, ms out)."""
+def attribute(t: dict, top: int = 10) -> dict:
+    """Of a trace as ``trace.load`` reads it: the longest idle gaps, each with
+    each thread's innermost span at its midpoint, and the idle time split by
+    holder (microseconds in, ms out)."""
+    spans, extent = t["spans"], device_extent(t["device"])
     role_of = roles(spans)
-    idle = idle_intervals(device, extent)
+    idle = idle_intervals(t["device"])
     gaps = []
     for a, b in sorted(idle, key=lambda g: g[0] - g[1])[:top]:
         inner = innermost(open_at(spans, (a + b) / 2))
@@ -170,11 +86,11 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--json", help="also write the attribution here")
     args = ap.parse_args(argv)
-    device, spans, extent = load(args.trace)
-    if not device:
+    t = load(args.trace)
+    if not t["device"]:
         print("the trace holds no device operation", file=sys.stderr)
         return 1
-    out = attribute(device, spans, extent, args.top)
+    out = attribute(t, args.top)
     print(render(out))
     if args.json:
         with open(args.json, "w", encoding="utf-8") as f:
